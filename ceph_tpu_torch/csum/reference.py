@@ -1,0 +1,318 @@
+"""Checksum oracles and table/matrix construction (host-side numpy).
+
+Copy of ceph_tpu/csum/reference.py (numpy only), kept in the port so that
+ceph_tpu_torch imports nothing of ceph_tpu.
+
+crc32c: Castagnoli polynomial 0x1EDC6F41, reflected form 0x82F63B78 —
+the same CRC the reference computes in src/common/crc32c.cc
+(`ceph_crc32c`, hardware-dispatched to crc32c_intel_fast / aarch64 CRC
+extensions). Two conventions are exposed:
+
+  crc32c(data)          — the standard CRC-32C (init ~0, final xor ~0);
+                          matches the RFC 3720 iSCSI test vectors.
+  ceph_crc32c(seed, d)  — the reference's raw-register convention: the
+                          caller supplies the register seed and no final
+                          inversion is applied (Ceph callers pass -1 and
+                          chain block CRCs by feeding the result back in).
+
+xxh32 / xxh64: XXHash as bundled by the reference (src/xxHash/), needed
+for BlueStore csum_type=xxhash32/64 parity.
+
+Everything that the device kernels close over (slicing tables, GF(2)
+shift matrices for the log-depth CRC combine) is built here once.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+CRC32C_POLY_REFLECTED = 0x82F63B78
+_M32 = 0xFFFFFFFF
+_M64 = 0xFFFFFFFFFFFFFFFF
+
+
+# --------------------------------------------------------------- crc32c
+
+@functools.cache
+def crc32c_table() -> np.ndarray:
+    """Byte-at-a-time table: T[v] = register after consuming byte v from 0."""
+    v = np.arange(256, dtype=np.uint32)
+    c = v.copy()
+    for _ in range(8):
+        c = (c >> 1) ^ np.where(c & 1, np.uint32(CRC32C_POLY_REFLECTED),
+                                np.uint32(0))
+    return c
+
+
+@functools.cache
+def crc32c_slice8_tables() -> np.ndarray:
+    """Slicing-by-8 tables (8, 256) uint32.
+
+    T[0] is the basic table; T[j+1][v] advances T[j][v] through one more
+    zero byte. With a zero initial register, the CRC register after 8
+    bytes b0..b7 is XOR_i T[7-i][b_i] — the byte-parallel form the device
+    kernel uses (same math as the reference's sctp_crc32 slicing fallback
+    and the PCLMUL folding constants, ref: src/common/crc32c_intel_fast_asm.s).
+    """
+    t0 = crc32c_table()
+    out = np.zeros((8, 256), dtype=np.uint32)
+    out[0] = t0
+    for j in range(1, 8):
+        out[j] = (out[j - 1] >> 8) ^ t0[out[j - 1] & 0xFF]
+    return out
+
+
+def _crc32c_update(reg: int, data: bytes | np.ndarray) -> int:
+    """Advance the raw CRC register over data (no init/final inversion).
+    Plain python ints over a list table — ~10x the numpy-scalar loop
+    this replaced (numpy scalar ops pay per-op boxing; the reference
+    oracle is still O(n) per byte — bulk paths use csum/kernels)."""
+    t = _crc32c_pylist()
+    buf = bytes(data) if not isinstance(data, np.ndarray) \
+        else data.astype(np.uint8).ravel().tobytes()
+    reg = int(reg) & 0xFFFFFFFF
+    for b in buf:
+        reg = (reg >> 8) ^ t[(reg ^ b) & 0xFF]
+    return reg
+
+
+_PYLIST_CACHE: list[int] | None = None
+
+
+def _crc32c_pylist() -> list[int]:
+    global _PYLIST_CACHE
+    if _PYLIST_CACHE is None:
+        _PYLIST_CACHE = [int(x) for x in crc32c_table()]
+    return _PYLIST_CACHE
+
+
+def crc32c(data: bytes | np.ndarray, init: int = 0xFFFFFFFF,
+           xorout: int = 0xFFFFFFFF) -> int:
+    """Standard CRC-32C. crc32c(b'123456789') == 0xE3069283."""
+    return _crc32c_update(init, data) ^ xorout
+
+
+def ceph_crc32c(seed: int, data: bytes | np.ndarray) -> int:
+    """The reference's convention (ref: src/common/crc32c.h ceph_crc32c):
+    raw register update from `seed`, no final inversion. Chainable:
+    ceph_crc32c(ceph_crc32c(s, a), b) == ceph_crc32c(s, a+b)."""
+    return _crc32c_update(seed & _M32, data)
+
+
+def ceph_crc32c_iov(seed: int, parts, update=ceph_crc32c) -> int:
+    """Running ceph_crc32c over an iovec (list of buffers): the
+    seeded-continuation form the scatter-gather framing path uses —
+    bit-identical to ceph_crc32c(seed, join(parts)) without ever
+    joining. `update` may be any chainable ceph_crc32c implementation
+    (e.g. the native codec's)."""
+    reg = seed & _M32
+    for p in parts:
+        reg = update(reg, p)
+    return reg & _M32
+
+
+# ------------------------------------------------- GF(2) combine matrices
+
+def _zero_byte_matrix() -> np.ndarray:
+    """32x32 GF(2) matrix advancing the register through ONE zero byte.
+
+    Column b = register result of (1<<b) after a zero byte. CRC register
+    update is GF(2)-linear in the register when the data byte is zero.
+    """
+    t = crc32c_table()
+    cols = np.zeros((32, 32), dtype=np.uint8)
+    for b in range(32):
+        reg = np.uint32(1 << b)
+        reg = (reg >> np.uint32(8)) ^ t[reg & np.uint32(0xFF)]
+        for r in range(32):
+            cols[r, b] = (int(reg) >> r) & 1
+    return cols
+
+
+def _matmul_gf2(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return (a.astype(np.int32) @ b.astype(np.int32)) % 2
+
+
+@functools.cache
+def shift_matrix(nbytes: int) -> np.ndarray:
+    """32x32 GF(2) matrix advancing the CRC register through `nbytes`
+    zero bytes (i.e. the linear 'shift by nbytes' operator), via square-
+    and-multiply so 4 KiB shifts cost ~log2 steps."""
+    if nbytes == 0:
+        return np.eye(32, dtype=np.uint8)
+    if nbytes == 1:
+        return _zero_byte_matrix().astype(np.uint8)
+    half = shift_matrix(nbytes // 2)
+    sq = _matmul_gf2(half, half).astype(np.uint8)
+    if nbytes % 2:
+        sq = _matmul_gf2(shift_matrix(1), sq).astype(np.uint8)
+    return sq
+
+
+@functools.cache
+def inv_shift_matrix(nbytes: int) -> np.ndarray:
+    """Inverse of shift_matrix(nbytes): un-advances the register through
+    `nbytes` zero bytes. The zero-byte operator is a bijection on the
+    register space, so this always exists; built by GF(2) Gauss-Jordan
+    on the single-byte matrix, then square-and-multiply."""
+    if nbytes == 0:
+        return np.eye(32, dtype=np.uint8)
+    if nbytes == 1:
+        a = _zero_byte_matrix().astype(np.uint8) % 2
+        inv = np.eye(32, dtype=np.uint8)
+        a = a.copy()
+        for col in range(32):
+            pivot = col
+            while a[pivot, col] == 0:
+                pivot += 1
+            if pivot != col:
+                a[[col, pivot]] = a[[pivot, col]]
+                inv[[col, pivot]] = inv[[pivot, col]]
+            for row in range(32):
+                if row != col and a[row, col]:
+                    a[row] ^= a[col]
+                    inv[row] ^= inv[col]
+        return inv
+    half = inv_shift_matrix(nbytes // 2)
+    sq = _matmul_gf2(half, half).astype(np.uint8)
+    if nbytes % 2:
+        sq = _matmul_gf2(inv_shift_matrix(1), sq).astype(np.uint8)
+    return sq
+
+
+def matrix_cols_u32(m: np.ndarray) -> np.ndarray:
+    """Pack a 32x32 GF(2) matrix into 32 uint32 column constants so that
+    apply(m, x) == XOR over set bits b of x of cols[b]."""
+    bits = np.arange(32, dtype=np.uint32)
+    return (m.astype(np.uint32) << bits[:, None]).sum(axis=0,
+                                                      dtype=np.uint32)
+
+
+def apply_shift(reg: int, nbytes: int) -> int:
+    """Advance register `reg` through nbytes zero bytes (host scalar)."""
+    cols = matrix_cols_u32(shift_matrix(nbytes))
+    out = np.uint32(0)
+    for b in range(32):
+        if (reg >> b) & 1:
+            out ^= cols[b]
+    return int(out)
+
+
+# --------------------------------------------------------------- xxhash
+
+_P32 = (2654435761, 2246822519, 3266489917, 668265263, 374761393)
+_P64 = (11400714785074694791, 14029467366897019727, 1609587929392839161,
+        9650029242287828579, 2870177450012600261)
+
+
+def _rotl32(x: int, r: int) -> int:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def _rotl64(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & _M64
+
+
+def xxh32(data: bytes | np.ndarray, seed: int = 0) -> int:
+    """XXH32 oracle (ref: bundled src/xxHash XXH32). Byte-exact."""
+    d = bytes(data) if not isinstance(data, np.ndarray) else data.astype(
+        np.uint8).tobytes()
+    n = len(d)
+    p = 0
+    if n >= 16:
+        v1 = (seed + _P32[0] + _P32[1]) & _M32
+        v2 = (seed + _P32[1]) & _M32
+        v3 = seed & _M32
+        v4 = (seed - _P32[0]) & _M32
+        while p + 16 <= n:
+            for i, v in enumerate((v1, v2, v3, v4)):
+                lane = int.from_bytes(d[p + 4 * i:p + 4 * i + 4], "little")
+                v = (v + lane * _P32[1]) & _M32
+                v = _rotl32(v, 13)
+                v = (v * _P32[0]) & _M32
+                if i == 0:
+                    v1 = v
+                elif i == 1:
+                    v2 = v
+                elif i == 2:
+                    v3 = v
+                else:
+                    v4 = v
+            p += 16
+        h = (_rotl32(v1, 1) + _rotl32(v2, 7) + _rotl32(v3, 12) +
+             _rotl32(v4, 18)) & _M32
+    else:
+        h = (seed + _P32[4]) & _M32
+    h = (h + n) & _M32
+    while p + 4 <= n:
+        lane = int.from_bytes(d[p:p + 4], "little")
+        h = (h + lane * _P32[2]) & _M32
+        h = (_rotl32(h, 17) * _P32[3]) & _M32
+        p += 4
+    while p < n:
+        h = (h + d[p] * _P32[4]) & _M32
+        h = (_rotl32(h, 11) * _P32[0]) & _M32
+        p += 1
+    h ^= h >> 15
+    h = (h * _P32[1]) & _M32
+    h ^= h >> 13
+    h = (h * _P32[2]) & _M32
+    h ^= h >> 16
+    return h
+
+
+def _xxh64_round(acc: int, lane: int) -> int:
+    acc = (acc + lane * _P64[1]) & _M64
+    acc = _rotl64(acc, 31)
+    return (acc * _P64[0]) & _M64
+
+
+def _xxh64_merge(h: int, v: int) -> int:
+    h ^= _xxh64_round(0, v)
+    return ((h * _P64[0]) + _P64[3]) & _M64
+
+
+def xxh64(data: bytes | np.ndarray, seed: int = 0) -> int:
+    """XXH64 oracle (ref: bundled src/xxHash XXH64). Byte-exact."""
+    d = bytes(data) if not isinstance(data, np.ndarray) else data.astype(
+        np.uint8).tobytes()
+    n = len(d)
+    p = 0
+    if n >= 32:
+        v1 = (seed + _P64[0] + _P64[1]) & _M64
+        v2 = (seed + _P64[1]) & _M64
+        v3 = seed & _M64
+        v4 = (seed - _P64[0]) & _M64
+        while p + 32 <= n:
+            v1 = _xxh64_round(v1, int.from_bytes(d[p:p + 8], "little"))
+            v2 = _xxh64_round(v2, int.from_bytes(d[p + 8:p + 16], "little"))
+            v3 = _xxh64_round(v3, int.from_bytes(d[p + 16:p + 24], "little"))
+            v4 = _xxh64_round(v4, int.from_bytes(d[p + 24:p + 32], "little"))
+            p += 32
+        h = (_rotl64(v1, 1) + _rotl64(v2, 7) + _rotl64(v3, 12) +
+             _rotl64(v4, 18)) & _M64
+        for v in (v1, v2, v3, v4):
+            h = _xxh64_merge(h, v)
+    else:
+        h = (seed + _P64[4]) & _M64
+    h = (h + n) & _M64
+    while p + 8 <= n:
+        h ^= _xxh64_round(0, int.from_bytes(d[p:p + 8], "little"))
+        h = (_rotl64(h, 27) * _P64[0] + _P64[3]) & _M64
+        p += 8
+    if p + 4 <= n:
+        h ^= (int.from_bytes(d[p:p + 4], "little") * _P64[0]) & _M64
+        h = (_rotl64(h, 23) * _P64[1] + _P64[2]) & _M64
+        p += 4
+    while p < n:
+        h ^= (d[p] * _P64[4]) & _M64
+        h = (_rotl64(h, 11) * _P64[0]) & _M64
+        p += 1
+    h ^= h >> 33
+    h = (h * _P64[1]) & _M64
+    h ^= h >> 29
+    h = (h * _P64[2]) & _M64
+    h ^= h >> 32
+    return h
