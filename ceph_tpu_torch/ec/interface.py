@@ -144,6 +144,10 @@ class ErasureCode(abc.ABC):
                     continue
             fn = make_encoder(R, impl) if R is not None else False
             cache[(erasures, survivors)] = fn
+            if R is not None:
+                self.__dict__.setdefault("_bd_keys", {})[
+                    (erasures, survivors)] = (
+                        "lin", R.tobytes(), R.shape, impl)
         return fn or None
 
     # -- parity-delta fast path (partial-stripe RMW) -----------------------
@@ -164,6 +168,17 @@ class ErasureCode(abc.ABC):
             except ValueError:
                 cache[touched] = None
         return cache[touched]
+
+    def delta_program_key(self, touched: Sequence[int]):
+        """Hashable identity of the fused delta-encode program, EQUAL
+        across coder instances with the same geometry: the process-wide
+        RMW program cache key. None when there is no static form."""
+        touched = tuple(int(t) for t in touched)
+        D = self.delta_matrix(touched)
+        if D is None:
+            return None
+        impl = getattr(self, "impl", None) or "mxu"
+        return ("delta", D.tobytes(), D.shape, impl)
 
     def parity_delta(self, touched: Sequence[int], deltas) -> torch.Tensor:
         """(B, len(touched), L) data-shard deltas (new ^ old, DENSE row
@@ -188,6 +203,32 @@ class ErasureCode(abc.ABC):
         for ti, tr in enumerate(touched):
             full[:, tr, :] = deltas[:, ti, :]
         return self.encode_chunks(full)
+
+    def range_batch_decoder(self, erasures: Sequence[int],
+                            survivors: Sequence[int]):
+        """Sub-chunk fast path: a function mapping the helpers' planned
+        byte ranges (B, H, rl) to the rebuilt full chunks. Only codecs
+        whose repair reads a strict sub-range of each helper (Clay)
+        provide one; None means full rows and batch_decoder."""
+        return None
+
+    def range_decode_program_key(self, erasures: Sequence[int],
+                                 survivors: Sequence[int]):
+        """Process-wide program identity for range_batch_decoder."""
+        return None
+
+    def decode_program_key(self, erasures: Sequence[int],
+                           survivors: Sequence[int]):
+        """Hashable identity of batch_decoder's program, EQUAL across
+        coder instances with the same geometry: the process-wide
+        recovery program cache key. None when there is no static form
+        (callers then cache per coder instance)."""
+        erasures = tuple(int(e) for e in erasures)
+        survivors = tuple(int(s) for s in survivors)
+        if self.batch_decoder(erasures, survivors) is None:
+            return None
+        return self.__dict__.get("_bd_keys", {}).get(
+            (erasures, survivors))
 
     # -- availability ------------------------------------------------------
 

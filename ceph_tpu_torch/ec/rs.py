@@ -76,6 +76,18 @@ class ReedSolomon(ErasureCode):
         fn, _ = self._decoder_for(erasures, survivors)
         return fn
 
+    def decode_program_key(self, erasures: Sequence[int],
+                           survivors: Sequence[int]):
+        # the program is a pure function of (coding matrix, erasure/
+        # survivor pattern, impl): every PG backend with the same
+        # profile shares one program per pattern
+        erasures = tuple(int(e) for e in erasures)
+        survivors = tuple(int(s) for s in survivors)[:self.k]
+        if len(survivors) < self.k:
+            return None
+        return ("rs", self.matrix.tobytes(), self.impl, erasures,
+                survivors)
+
     def decode_chunks(self, want_to_read: Sequence[int],
                       chunks: Mapping[int, object]
                       ) -> dict[int, torch.Tensor]:

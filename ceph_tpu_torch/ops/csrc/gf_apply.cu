@@ -1,6 +1,6 @@
 // Batched static-matrix GF(2^8) apply for Hopper (sm_90a):
 //   out[b, i, :] = XOR_j matrix[i, j] (x) in[b, j, :]   over GF(2^8)/0x11D
-// in (B, k, L) uint8, out (B, m, L) uint8, L % 4 == 0.
+// in (B, k, L) uint8, out (B, m, L) uint8, any L >= 0.
 //
 // Replaces ceph_tpu/ops/pallas_gf.py::_kernel_body (launched by
 // _build(...).apply through apply_matrix_pallas). It computes the same
@@ -17,6 +17,12 @@
 // row position, loops over the k input rows and 8 bits, and keeps MT
 // accumulators per lane in registers. Rows whose length is not a multiple
 // of 16 bytes (or misaligned pointers) take the 4-byte-word instance.
+// Rows whose length is not a multiple of 4 bytes (the RMW delta windows,
+// any length) do not start on a word boundary past row 0, so the same
+// instance then assembles each thread's 4-byte word from byte loads and
+// stores its bytes one by one; the last word of a row holds L % 4 bytes,
+// the rest of it is zero in and dropped out. The GF math is the same
+// SWAR word form in every instance, and no padded copy is made.
 // m > 8 runs in row groups of 8 inside the one launch (the input is read
 // once per group); the last group's missing rows have zero coefficients
 // and are not stored.
@@ -40,34 +46,66 @@
 
 namespace {
 
+// How one thread reads and writes its place in a row: NW 32-bit words
+// of field bytes. Rows are byte pointers; `p` counts places in a row.
 template <int VEC> struct Words;
-template <> struct Words<4> {
-  typedef uint4 T;
-  __device__ static void unpack(const uint4 v, uint32_t* w) {
+template <> struct Words<4> {              // 16 bytes, 16-byte aligned rows
+  static constexpr int NW = 4;
+  __device__ static long long places(long long L) { return L / 16; }
+  __device__ static void load(const uint8_t* row, long long p, long long,
+                              uint32_t* w) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(row) + p);
     w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
   }
-  __device__ static uint4 pack(const uint32_t* w) {
-    return make_uint4(w[0], w[1], w[2], w[3]);
+  __device__ static void store(uint8_t* row, long long p, long long,
+                               const uint32_t* w) {
+    reinterpret_cast<uint4*>(row)[p] = make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
-template <> struct Words<1> {
-  typedef uint32_t T;
-  __device__ static void unpack(const uint32_t v, uint32_t* w) { w[0] = v; }
-  __device__ static uint32_t pack(const uint32_t* w) { return w[0]; }
+template <> struct Words<1> {              // 4 bytes, 4-byte aligned rows
+  static constexpr int NW = 1;
+  __device__ static long long places(long long L) { return L / 4; }
+  __device__ static void load(const uint8_t* row, long long p, long long,
+                              uint32_t* w) {
+    w[0] = __ldg(reinterpret_cast<const uint32_t*>(row) + p);
+  }
+  __device__ static void store(uint8_t* row, long long p, long long,
+                               const uint32_t* w) {
+    reinterpret_cast<uint32_t*>(row)[p] = w[0];
+  }
+};
+template <> struct Words<0> {              // 4 bytes, rows of any length
+  static constexpr int NW = 1;
+  __device__ static long long places(long long L) { return (L + 3) / 4; }
+  __device__ static void load(const uint8_t* row, long long p, long long L,
+                              uint32_t* w) {
+    const long long q = 4 * p;
+    uint32_t x = 0u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (q + e < L) x |= (uint32_t)__ldg(row + q + e) << (8 * e);
+    w[0] = x;
+  }
+  __device__ static void store(uint8_t* row, long long p, long long L,
+                               const uint32_t* w) {
+    const long long q = 4 * p;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (q + e < L) row[q + e] = (uint8_t)(w[0] >> (8 * e));
+  }
 };
 
 // One block stages the (k, 8, MT) coefficient words of one row group
-// and walks objects (grid y) and row positions (grid x, grid-stride).
+// and walks objects (grid y) and row places (grid x, grid-stride).
 template <int MT, int VEC>
 __global__ void __launch_bounds__(256)
-gf_apply_kernel(const typename Words<VEC>::T* __restrict__ in,
-                typename Words<VEC>::T* __restrict__ out,
+gf_apply_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
                 const uint32_t* __restrict__ coefs,  // (m, k, 8)
-                int B, int k, int m, long long row_vecs) {
+                int B, int k, int m, long long L) {
   typedef Words<VEC> W;
+  constexpr int NW = W::NW;
   extern __shared__ uint32_t sc[];  // [j][b][i], k * 8 * MT words
-  const long long in_obj = (long long)k * row_vecs;
-  const long long out_obj = (long long)m * row_vecs;
+  const long long places = W::places(L);
   const int n_coef = k * 8 * MT;
   for (int g = 0; g < m; g += MT) {
     __syncthreads();
@@ -78,19 +116,19 @@ gf_apply_kernel(const typename Words<VEC>::T* __restrict__ in,
     }
     __syncthreads();
     for (long long b = blockIdx.y; b < B; b += gridDim.y) {
-      const typename W::T* xb = in + b * in_obj;
-      typename W::T* yb = out + b * out_obj + (long long)g * row_vecs;
+      const uint8_t* xb = in + b * k * L;
+      uint8_t* yb = out + (b * m + g) * L;
       for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-           p < row_vecs; p += (long long)gridDim.x * blockDim.x) {
-        uint32_t acc[MT][VEC];
+           p < places; p += (long long)gridDim.x * blockDim.x) {
+        uint32_t acc[MT][NW];
 #pragma unroll
         for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[i][e] = 0u;
+          for (int e = 0; e < NW; ++e) acc[i][e] = 0u;
 #pragma unroll 2
         for (int j = 0; j < k; ++j) {
-          uint32_t x[VEC];
-          W::unpack(__ldg(xb + (long long)j * row_vecs + p), x);
+          uint32_t x[NW];
+          W::load(xb + j * L, p, L, x);
           const uint32_t* cj = sc + j * 8 * MT;
 #pragma unroll
           for (int bit = 0; bit < 8; ++bit) {
@@ -98,7 +136,7 @@ gf_apply_kernel(const typename Words<VEC>::T* __restrict__ in,
 #pragma unroll
             for (int i = 0; i < MT; ++i) c[i] = cj[bit * MT + i];
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) {
+            for (int e = 0; e < NW; ++e) {
               const uint32_t v = (x[e] >> bit) & 0x01010101u;
               const uint32_t mask = (v << 8) - v;
 #pragma unroll
@@ -108,7 +146,7 @@ gf_apply_kernel(const typename Words<VEC>::T* __restrict__ in,
         }
 #pragma unroll
         for (int i = 0; i < MT; ++i)
-          if (g + i < m) yb[(long long)i * row_vecs + p] = W::pack(acc[i]);
+          if (g + i < m) W::store(yb + i * L, p, L, acc[i]);
       }
     }
   }
@@ -117,8 +155,8 @@ gf_apply_kernel(const typename Words<VEC>::T* __restrict__ in,
 template <int MT, int VEC>
 cudaError_t launch(const void* in, void* out, const void* coefs, int B,
                    int k, int m, long long L, cudaStream_t stream) {
-  typedef typename Words<VEC>::T T;
-  const long long row_vecs = L / (4 * VEC);
+  const long long places = VEC == 4 ? L / 16 : VEC == 1 ? L / 4
+                                                        : (L + 3) / 4;
   const int threads = 256;
   const size_t smem = (size_t)k * 8 * MT * sizeof(uint32_t);
   if (smem > 48 * 1024) {
@@ -127,13 +165,13 @@ cudaError_t launch(const void* in, void* out, const void* coefs, int B,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  long long gx = (row_vecs + threads - 1) / threads;
+  long long gx = (places + threads - 1) / threads;
   if (gx > 0x7fffffffLL) gx = 0x7fffffffLL;
   const unsigned gy = B < 65535 ? (unsigned)B : 65535u;
   gf_apply_kernel<MT, VEC><<<dim3((unsigned)gx, gy), threads, smem,
                              stream>>>(
-      static_cast<const T*>(in), static_cast<T*>(out),
-      static_cast<const uint32_t*>(coefs), B, k, m, row_vecs);
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
+      static_cast<const uint32_t*>(coefs), B, k, m, L);
   return cudaGetLastError();
 }
 
@@ -154,13 +192,15 @@ cudaError_t dispatch(const void* in, void* out, const void* coefs, int B,
 
 }  // namespace
 
-// vec = 4: L % 16 == 0 and 16-byte aligned pointers; vec = 1: 4-byte
-// words. Returns cudaGetLastError() after the launch (0 on success).
+// vec = 4: L % 16 == 0 and 16-byte aligned pointers; vec = 1: L % 4 == 0
+// and 4-byte aligned pointers; vec = 0: any L (byte loads and stores).
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int gf_apply(const void* in, void* out, const void* coefs, int B,
                         int k, int m, long long L, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || m <= 0 || L <= 0 || k < 0) return (int)cudaErrorInvalidValue;
   if (vec == 4) return (int)dispatch<4>(in, out, coefs, B, k, m, L, s);
   if (vec == 1) return (int)dispatch<1>(in, out, coefs, B, k, m, L, s);
+  if (vec == 0) return (int)dispatch<0>(in, out, coefs, B, k, m, L, s);
   return (int)cudaErrorInvalidValue;
 }

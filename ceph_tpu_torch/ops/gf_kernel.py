@@ -3,7 +3,7 @@ and its plain PyTorch version.
 
 Counterpart of ceph_tpu/ops/pallas_gf.py. `apply_matrix_gf(matrix,
 data)` computes out[b, i, :] = XOR_j matrix[i, j] (x) data[b, j, :]
-over GF(2^8) (poly 0x11D) for data (B, k, L) uint8 with L % 4 == 0.
+over GF(2^8) (poly 0x11D) for data (B, k, L) uint8, any L >= 0.
 
 - On a CUDA tensor it launches `csrc/gf_apply.cu` (sm_90a), built with
   nvcc on first use into `ceph_tpu_torch/_build/` and loaded with
@@ -107,8 +107,6 @@ def _check(matrix: np.ndarray, data: torch.Tensor) -> None:
     if data.shape[1] != k:
         raise ValueError(f"data has {data.shape[1]} shards, "
                          f"matrix expects {k}")
-    if data.shape[2] % 4:
-        raise ValueError(f"chunk length {data.shape[2]} not a multiple of 4")
 
 
 def apply_matrix_plain(matrix: np.ndarray, data: torch.Tensor
@@ -117,13 +115,19 @@ def apply_matrix_plain(matrix: np.ndarray, data: torch.Tensor
     SWAR bit-linear accumulate of `pallas_gf._kernel_body`. `>>` on
     int32 is arithmetic, but `& 0x01010101` after a shift of at most 7
     keeps only bits that came from the word itself; `(v << 8) - v`
-    wraps like the uint32 original."""
+    wraps like the uint32 original. A length that is not a multiple
+    of 4 is zero-padded to the next word and the padding's (zero)
+    output dropped: each byte position is computed on its own."""
     matrix = np.ascontiguousarray(matrix, np.uint8)
     _check(matrix, data)
     m, k = matrix.shape
     B, _, L = data.shape
     if data.numel() == 0:
         return torch.zeros((B, m, L), dtype=torch.uint8, device=data.device)
+    if L % 4:
+        padded = data.new_zeros((B, k, L + 4 - L % 4))
+        padded[:, :, :L] = data
+        return apply_matrix_plain(matrix, padded)[:, :, :L]
     coefs = coef_words(matrix).view(np.int32)
     x = data.contiguous().view(torch.int32)          # (B, k, L // 4)
     accs: list[torch.Tensor | None] = [None] * m
@@ -167,9 +171,11 @@ def apply_matrix_gf(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     if B == 0 or L == 0 or m == 0:
         return out.zero_()
     data = data.contiguous()
-    if data.data_ptr() % 4:
-        data = data.clone()
-    vec = 4 if L % 16 == 0 and data.data_ptr() % 16 == 0 else 1
+    # 16-byte words where rows allow them, 4-byte words where rows are
+    # word-aligned, else byte loads (ragged L or a misaligned start)
+    ptr = data.data_ptr()
+    vec = 4 if L % 16 == 0 and ptr % 16 == 0 else \
+        1 if L % 4 == 0 and ptr % 4 == 0 else 0
     coefs = _device_coefs(matrix.tobytes(), m, k, data.device)
     lib = _load()
     with torch.cuda.device(data.device):

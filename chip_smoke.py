@@ -16,9 +16,18 @@ Phases, each of which fails loudly (exit code 1, no result line):
      the write-time bytes and CRCs, the numpy oracle and the CRC
      reference, and check that the kernels were launched;
   4. time each kernel and its plain version with CUDA events around a
-     run of back-to-back calls (warm, median per call), and the
+     run of back-to-back calls (warm, median per call; the small ragged
+     instance by its device time in a torch.profiler trace), and the
      end-to-end encode GB/s, decode GB/s and recovery objects/s one
-     call at a time, host overhead included.
+     call at a time, host overhead included;
+  5. drive the PG backend the way its users do, at the same width:
+     ECBackend.write_objects of 256 seeded 4 MiB objects in groups of
+     32, read_objects of all of them, a degraded read with shards 0
+     and 9 down, one flipped byte in a helper shard, recover_shards
+     of shards 0 and 9 through RecoveryRunner (batch 32), repair_pg
+     and a clean deep_scrub, one RMW delta wave over 32 objects with
+     ragged windows (5 bytes at 3, 4093 bytes at 1 MiB + 7), and a
+     stripe-journal replay; every check bit-exact.
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
 
@@ -38,6 +47,7 @@ SEED = 20261017
 K, M = 8, 3
 OBJECT_SIZE = 4 << 20
 N_OBJECTS = 1024
+N_BACKEND = 256
 BATCH = 32
 LOST = (0, 9)
 PROFILE = f"plugin=jerasure technique=reed_sol_van k={K} m={M}"
@@ -89,6 +99,27 @@ def cuda_ms(fn, warm: int = 3, reps: int = 7, calls: int = 1) -> float:
     return statistics.median(times)
 
 
+def kernel_device_ms(fn, symbol: str, calls: int = 20) -> float:
+    """Milliseconds of device time per launch of the kernel whose
+    symbol holds `symbol`, from a torch.profiler trace of `calls`
+    calls after warm ones; fails unless the trace shows every launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in device_events(prof) if symbol in e.key]
+    n = sum(e.count for e in evs)
+    if n != calls:
+        fail(f"the trace shows {n} launches of {symbol}, not {calls}")
+    return sum(e.self_device_time_total for e in evs) / n / 1e3
+
+
 def gf_bound(B: int, k: int, m: int, L: int) -> tuple[float, str]:
     """Least time (ms) the card could take for the GF apply: the larger
     of B*(k+m)*L bytes through HBM and the fewest operations known for
@@ -133,6 +164,13 @@ def check_gf_kernel(torch, dev) -> dict:
         ("L=524292", rs, (2, K, 524292), 0),
         ("B=1", rs, (1, K, sl), 0),
         ("unaligned start", rs, (3, K, 4096), 4),
+        ("L=1 (ragged)", rs, (5, K, 1), 0),
+        ("L=5 (ragged)", rs, (5, K, 5), 0),
+        ("L=6 (ragged)", rs, (5, K, 6), 0),
+        ("L=7 (ragged)", rs, (5, K, 7), 0),
+        ("L=4093 (ragged)", rs, (BATCH, K, 4093), 0),
+        ("delta (ragged)", rs[:, [0, 2]], (BATCH, 2, 4093), 0),
+        ("ragged, odd start", rs, (3, K, 4097), 1),
     ]
     worst = 0
     for name, mat, (B, k, L), offset in cases:
@@ -244,6 +282,24 @@ def measure(torch, dev, ctx) -> dict:
         log(f"  gf_apply {label} ({BATCH},{K},{sl})->({BATCH},{m},{sl}): "
             f"{ms:.4f} ms (bound {bound:.4f} ms, {by}), plain "
             f"{plain:.4f} ms")
+    # the ragged instance at the RMW delta shape of phase 5: at this
+    # size the wrapper's host work outlasts the kernel, so its time is
+    # the kernel's own device time from a trace; host_ms is per call
+    # with the host's work included
+    dmat = coder.matrix[:, [0, 2]]
+    ddata = data[:, :2, :4093].contiguous()
+    ms = kernel_device_ms(lambda: G.apply_matrix_gf(dmat, ddata),
+                          "gf_apply_kernel")
+    host_ms = cuda_ms(lambda: G.apply_matrix_gf(dmat, ddata), calls=20)
+    plain = cuda_ms(lambda: G.apply_matrix_plain(dmat, ddata), 1, 5,
+                    calls=3)
+    bound, by = gf_bound(BATCH, 2, M, 4093)
+    out["ragged"] = {"ms": ms, "host_ms": host_ms, "plain_ms": plain,
+                     "bound_ms": bound, "bound_by": by,
+                     "shape": [BATCH, 2, M, 4093]}
+    log(f"  gf_apply ragged ({BATCH},2,4093)->({BATCH},{M},4093): "
+        f"{ms:.5f} ms on the device, {host_ms:.4f} ms per call with the "
+        f"host's work (bound {bound:.6f} ms, {by}), plain {plain:.4f} ms")
     in_bytes = BATCH * K * sl
     t_enc = cuda_ms(lambda: coder.encode_chunks(data))
     t_write = cuda_ms(lambda: ctx["write"](data))
@@ -269,6 +325,253 @@ def measure(torch, dev, ctx) -> dict:
     log(f"  crc32c_blocks over {BATCH * K} rows of {sl} B: {t_crc:.4f} ms "
         f"({e2e['crc32c_gbps']:.2f} GB/s)")
     out["e2e"] = e2e
+    return out
+
+
+# ------------------------------------------------------------- phase 5
+
+def backend_path(torch, dev) -> dict:
+    """The PG data path through ECBackend and RecoveryRunner at full
+    width; returns the phase's rates, span totals and counters."""
+    import numpy as np
+
+    from ceph_tpu_torch.osd.ecbackend import (HINFO_KEY, ECBackend,
+                                              ShardSet, Transaction,
+                                              _fused_write_fn, shard_cid)
+    from ceph_tpu_torch.ops import gf_kernel as G
+    from ceph_tpu_torch.osd.stripe import HashInfo
+
+    n = K + M
+    sl = OBJECT_SIZE // K
+    pg = "1.0"
+    be = ECBackend(PROFILE, pg, list(range(n)), ShardSet(), chunk_size=sl,
+                   device=dev)
+    if be.device.type != dev.type or be.sinfo.chunk_size != sl \
+            or be.coder.impl != "pallas":
+        fail(f"backend on {be.device}, chunk {be.sinfo.chunk_size}, "
+             f"impl {be.coder.impl}")
+    names = [f"obj{i:04d}" for i in range(N_BACKEND)]
+    groups = [names[i:i + BATCH] for i in range(0, N_BACKEND, BATCH)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    objs: dict = {}
+
+    # 1. writes, 32 objects per call
+    t_write = 0.0
+    for g in groups:
+        batch = torch.randint(0, 256, (len(g), OBJECT_SIZE),
+                              dtype=torch.uint8, device=dev,
+                              generator=gen).cpu().numpy()
+        chunk = {nm: batch[i] for i, nm in enumerate(g)}
+        objs.update(chunk)
+        t0 = time.perf_counter()
+        be.write_objects(chunk)
+        t_write += time.perf_counter() - t0
+    write_gbps = N_BACKEND * OBJECT_SIZE / t_write / 1e9
+    log(f"  write_objects: {N_BACKEND} x {OBJECT_SIZE >> 20} MiB in "
+        f"{t_write:.3f} s: {write_gbps:.3f} GB/s (host clock)")
+
+    # 2. reads, then 3. a degraded read with shards 0 and 9 down
+    for dead, label in (((), "read"), ((be.acting[0], be.acting[9]),
+                                       "degraded read (0, 9 down)")):
+        t0 = time.perf_counter()
+        for g in groups:
+            got = be.read_objects(g, dead_osds=set(dead))
+            for nm in g:
+                if not np.array_equal(got[nm], objs[nm]):
+                    fail(f"{label} of {nm} differs from the write")
+        log(f"  {label}: {N_BACKEND} objects bit-exact in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+    # 4. one flipped byte in a helper shard the recovery will read
+    flip_slot, flip_name, flip_off = 3, names[37], sl // 3
+    st = be.cluster.osd(be.acting[flip_slot])
+    cid = shard_cid(pg, flip_slot)
+    byte = st.read(cid, flip_name, flip_off, 1)
+    st.queue_transaction(Transaction().write(
+        cid, flip_name, flip_off, (byte ^ 0x5A).astype(np.uint8)))
+
+    # 5. lose shards 0 and 9; RecoveryRunner rebuilds them
+    lost = list(LOST)
+    old = {s: be.cluster.stores.pop(be.acting[s]) for s in lost}
+    t0 = time.perf_counter()
+    counters = be.recover_shards(lost, replacement_osds={
+        s: 100 + s for s in lost}, batch=BATCH)
+    t_rec = time.perf_counter() - t0
+    rec_rate = counters["objects"] / t_rec
+    log(f"  recover_shards({lost}, batch={BATCH}): {counters} in "
+        f"{t_rec:.3f} s: {rec_rate:.1f} objects/s (host clock)")
+    if counters["objects"] != N_BACKEND or counters["hinfo_failures"] < 1:
+        fail(f"recovery counters {counters}: want {N_BACKEND} objects "
+             f"and the flipped helper flagged")
+    for s in lost:
+        new_st = be.cluster.osd(100 + s)
+        scid = shard_cid(pg, s)
+        for nm in names:
+            if not np.array_equal(new_st.read(scid, nm),
+                                  old[s].read(scid, nm)):
+                fail(f"rebuilt shard {s} of {nm} differs from the write")
+            if new_st.getattr(scid, nm, HINFO_KEY) != \
+                    old[s].getattr(scid, nm, HINFO_KEY):
+                fail(f"rebuilt hinfo of shard {s} of {nm} differs")
+    log(f"  rebuilt shards {lost} of {N_BACKEND} objects and their hinfo "
+        f"equal the write's, the flipped helper's object included")
+
+    # 6. repair the flipped helper, then a clean deep scrub
+    rep = be.repair_pg()
+    if rep["repaired"] != 1 or rep["objects"] != 1:
+        fail(f"repair_pg {rep}: want the one flipped shard repaired")
+    scrub = be.deep_scrub()
+    if scrub["inconsistent"] or scrub["checked"] != N_BACKEND * n \
+            or scrub["journal_bad"]:
+        fail(f"deep_scrub not clean: {scrub}")
+    log(f"  repair_pg {rep}; deep_scrub checked {scrub['checked']} "
+        f"shards, clean")
+
+    # 7. one RMW delta wave over 32 objects with ragged windows
+    rng = np.random.default_rng(SEED + 7)
+    wave = names[:BATCH]
+    ops = []
+    for nm in wave:
+        for off, ln in ((3, 5), (OBJECT_SIZE // 4 + 7, 4093)):
+            patch = rng.integers(0, 256, ln, dtype=np.uint8)
+            ops.append((nm, off, patch))
+            objs[nm] = objs[nm].copy()
+            objs[nm][off:off + ln] = patch
+    rmw0 = be.perf.get("rmw_ops")
+    t0 = time.perf_counter()
+    be.write_ranges(ops)
+    t_rmw = time.perf_counter() - t0
+    if be.perf.get("rmw_ops") - rmw0 != BATCH \
+            or be.perf.get("rmw_full_fallbacks"):
+        fail(f"RMW wave took the full path: rmw_ops "
+             f"{be.perf.get('rmw_ops') - rmw0}, fallbacks "
+             f"{be.perf.get('rmw_full_fallbacks')}")
+    got = be.read_objects(wave)
+    data = np.stack([got[nm] for nm in wave])
+    if not np.array_equal(data, np.stack([objs[nm] for nm in wave])):
+        fail("RMW wave: objects read back differ from the overlay")
+    full = _fused_write_fn(be.coder.matrix.tobytes(), M, K, be.coder.impl,
+                           sl, BATCH, be.device)
+    ref0 = G.apply_matrix_gf.launches     # the reference is not the path
+    parity, crcs = full(torch.from_numpy(
+        be.sinfo.object_to_shards(data)).to(dev))
+    G.apply_matrix_gf.launches = ref0
+    parity, crcs = parity.cpu().numpy(), crcs.cpu().numpy()
+    for bi, nm in enumerate(wave):
+        for s in range(n):
+            st = be.cluster.osd(be.acting[s])
+            scid = shard_cid(pg, s)
+            h = HashInfo.from_bytes(st.getattr(scid, nm, HINFO_KEY))
+            if h.get_chunk_hash(0) != int(crcs[bi, s]):
+                fail(f"RMW hinfo of shard {s} of {nm} differs from a "
+                     f"full re-encode")
+            if s >= K and not np.array_equal(st.read(scid, nm),
+                                             parity[bi, s - K]):
+                fail(f"RMW parity shard {s} of {nm} differs from a full "
+                     f"re-encode")
+    log(f"  RMW delta wave: {BATCH} objects x 2 ragged windows in "
+        f"{t_rmw:.3f} s; parity and hinfo equal a full re-encode")
+
+    # 8. nothing left in the stripe journal
+    replay = be.stripe_journal_replay()
+    if replay != {"forward": 0, "rolled_back": 0, "entries": 0}:
+        fail(f"stripe_journal_replay found pending intents: {replay}")
+    spans = {k: be.perf.get(k)["sum"] for k in (
+        "encode_time", "recover_stage_time", "recover_launch_time",
+        "recover_fetch_time", "recover_writeback_time")}
+    log(f"  span totals (s): " + json.dumps(spans))
+    launches = G.apply_matrix_gf.launches
+    log(f"  gf_apply launches in phase 5: {launches}")
+    if launches == 0:
+        fail("the backend path never launched gf_apply")
+    trace = trace_backend(torch, be, gen)
+    return {"gf_apply_launches": launches,
+            "write_gbps": write_gbps, "write_s": t_write,
+            "recovery_objects_per_s": rec_rate, "recover_s": t_rec,
+            "rmw_wave_s": t_rmw, "spans_s": spans,
+            "recover_counters": counters, "trace": trace}
+
+
+def device_events(prof) -> list:
+    """The profile's device-side entries (kernels and copies). Host ops
+    that launched them, and the spans' ranges that the profiler mirrors
+    onto the device timeline, are left out, so nothing counts twice."""
+    import torch
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_busy_s(prof) -> float:
+    """Seconds of device work (kernels and copies) in a profile."""
+    return sum(e.self_device_time_total for e in device_events(prof)) / 1e6
+
+
+def trace_backend(torch, be, gen) -> dict:
+    """Where phase 5's time goes, after its checks: one more write
+    group and a one-shard recovery under torch.profiler (the device's
+    busy share of the wall time), and one more write group under
+    cProfile (the host functions that take the write's time)."""
+    import cProfile
+    import pstats
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceph_tpu_torch.osd.ecbackend import shard_cid
+
+    def group(tag):
+        batch = torch.randint(0, 256, (BATCH, OBJECT_SIZE), dtype=torch.uint8,
+                              device=gen.device, generator=gen)
+        return {f"{tag}{i:02d}": row for i, row in
+                enumerate(batch.cpu().numpy())}
+
+    out = {}
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        be.write_objects(group("tw"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["write_group_s"] = wall
+    out["write_device_busy_s"] = device_busy_s(prof)
+    slot = 5
+    old = be.cluster.stores.pop(be.acting[slot])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        counters = be.recover_shards([slot], replacement_osds={slot: 105},
+                                     batch=BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cid = shard_cid(be.pg, slot)
+    for nm in old.list_objects(cid):
+        if not np.array_equal(be.cluster.osd(105).read(cid, nm),
+                              old.read(cid, nm)):
+            fail(f"traced recovery of shard {slot} of {nm} differs")
+    out["recover_objects"] = counters["objects"]
+    out["recover_s"] = wall
+    out["recover_device_busy_s"] = device_busy_s(prof)
+    out["recover_top_device"] = [
+        [e.key[:60], e.self_device_time_total / 1e3, e.count]
+        for e in sorted(device_events(prof),
+                        key=lambda e: -e.self_device_time_total)[:6]]
+    cp = cProfile.Profile()
+    objs = group("tc")
+    cp.enable()
+    be.write_objects(objs)
+    cp.disable()
+    stats = pstats.Stats(cp)
+    out["write_host_top"] = [
+        [f"{fn[0].rsplit('/', 1)[-1]}:{fn[1]}:{fn[2]}", tt, ct]
+        for fn, (_cc, _nc, tt, ct, _callers) in sorted(
+            stats.stats.items(), key=lambda kv: -kv[1][2])[:10]]
+    for k in ("write", "recover"):
+        busy = out[f"{k}_device_busy_s"]
+        wall = out[f"{k}_group_s" if k == "write" else "recover_s"]
+        log(f"  traced {k}: wall {wall:.4f} s, device busy {busy:.4f} s, "
+            f"idle share {1 - busy / wall:.4f}")
+    log("  trace " + json.dumps(out))
     return out
 
 
@@ -305,18 +608,26 @@ def main() -> None:
     log("phase 4: times")
     times = measure(torch, dev, ctx)
     enc = times["encode"]
+
+    log("phase 5: the PG backend path")
+    G.apply_matrix_gf.launches = 0
+    backend = backend_path(torch, dev)
+    launches5 = backend["gf_apply_launches"]
+    log("backend " + json.dumps(backend))
     kernels = [{
         "name": "gf_apply",
         "route": "cuda",
         "source": "ceph_tpu_torch/ops/csrc/gf_apply.cu",
         "replaces": "ceph_tpu/ops/pallas_gf.py:103",
-        "launches": launches,
+        "launches": launches + launches5,
+        "launches_by_phase": {"3": launches, "5": launches5},
         "max_abs_err": gf_check["max_abs_err"],
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
         "library_ms": None,
         "shape": enc["shape"],
         "decode": times["decode"],
+        "ragged": times["ragged"],
     }]
     log("e2e " + json.dumps(times["e2e"]))
     log(json.dumps({"kernels": kernels}))

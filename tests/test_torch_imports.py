@@ -30,7 +30,11 @@ def test_port_has_the_slice_modules():
     for name in ("gf.tables", "gf.numpy_ref", "ec.matrices", "csum.reference",
                  "ops.gf_kernel", "ops.rs_kernels", "csum.kernels",
                  "ec.interface", "ec.linearize", "ec.registry", "ec.rs",
-                 "ops.xor_kernels", "ec.bitmatrix", "osd.ecbackend"):
+                 "ops.xor_kernels", "ec.bitmatrix", "osd.ecbackend",
+                 "utils.perf_counters", "utils.profiler",
+                 "utils.flight_recorder", "utils.tracing", "utils.encoding",
+                 "mgr.tracing", "osd.memstore", "osd.pglog", "osd.stripe",
+                 "osd.repairplan", "osd.pgbackend"):
         assert f"ceph_tpu_torch.{name}" in mods, name
 
 

@@ -73,7 +73,8 @@ def test_gf_kernel_plain_matches_pallas_interpret(B, k, m, L):
 
 @pytest.mark.parametrize("B,k,m,L", [
     (0, 3, 2, 64), (3, 2, 0, 64), (1, 5, 9, 4), (4, 3, 8, 1028),
-    (2, 255, 1, 8), (2, 1, 255, 8)])
+    (2, 255, 1, 8), (2, 1, 255, 8), (2, 4, 2, 1), (3, 8, 3, 4093),
+    (2, 5, 12, 7), (1, 3, 2, 0)])
 def test_gf_kernel_plain_edge_shapes(B, k, m, L):
     mat = _rand((m, k), seed=k * m + 7)
     data = _rand((B, k, L), seed=B + L)
@@ -92,8 +93,13 @@ def test_gf_kernel_rejects_what_the_pallas_wrapper_rejects():
     mat = reed_sol_van_matrix(4, 2)
     with pytest.raises(ValueError, match="data has 3 shards, matrix expects 4"):
         G.apply_matrix_gf(mat, torch.zeros((1, 3, 64), dtype=torch.uint8))
-    with pytest.raises(ValueError, match="not a multiple of 4"):
-        G.apply_matrix_gf(mat, torch.zeros((1, 4, 66), dtype=torch.uint8))
+    # a length that is not a multiple of 4 is the one thing the Pallas
+    # wrapper refuses that the port takes (the RMW delta windows need
+    # any length); it gives the oracle's bytes
+    ragged = _rand((1, 4, 66), seed=66)
+    np.testing.assert_array_equal(
+        G.apply_matrix_gf(mat, torch.from_numpy(ragged)).numpy(),
+        R.encode_ref(mat, ragged))
     with pytest.raises(ValueError, match="uint8"):
         G.apply_matrix_gf(mat, torch.zeros((1, 4, 64), dtype=torch.int32))
     with pytest.raises(ValueError, match="uint8"):
