@@ -1,0 +1,496 @@
+"""CRUSH map model: buckets, rules, tunables, and the packed SoA form.
+
+Rebuild of the reference's map structures (ref: src/crush/crush.h —
+crush_map / crush_bucket_{uniform,list,straw2} / crush_rule with
+CRUSH_RULE_TAKE / CHOOSE* / EMIT step programs; builder API ref:
+src/crush/builder.c, C++ facade ref: src/crush/CrushWrapper.h).
+
+Here the map is a small Python object graph with a `pack()` method that
+lowers everything to dense int32/float32 arrays (items matrix padded to
+max bucket size, per-bucket alg/size/type vectors) — the form the
+vectorized JAX mapper consumes. Bucket ids are negative (devices are
+non-negative), exactly the reference's convention; internally a bucket
+id b maps to row (-1 - b).
+
+Supported bucket algs: uniform, list, straw2 (the modern default),
+plus the legacy tree and original-straw buckets (straw2 replaced straw
+in Hammer) — calc_tree_nodes/calc_straws below hold their build-time
+aux tables, and both mappers implement their draws with pinned
+oracle==vector parity.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+CRUSH_ITEM_NONE = 0x7FFFFFFF
+
+# bucket algs (crush.h values)
+ALG_UNIFORM = 1
+ALG_LIST = 2
+ALG_TREE = 3
+ALG_STRAW = 4
+ALG_STRAW2 = 5
+_SUPPORTED_ALGS = {"uniform": ALG_UNIFORM, "list": ALG_LIST,
+                   "tree": ALG_TREE, "straw": ALG_STRAW,
+                   "straw2": ALG_STRAW2}
+ALG_NAMES = {v: k for k, v in _SUPPORTED_ALGS.items()}
+
+
+def calc_tree_nodes(weights: list[int]) -> list[int]:
+    """Tree-bucket node weights (ref: src/crush/builder.c
+    crush_make_tree_bucket / crush_calc_tree_node): items live at odd
+    node indices (item i -> node 2i+1) of an in-order-labelled binary
+    tree of num_nodes = next_pow2(2*size); internal node weight = sum
+    of its subtree. Missing leaves weigh 0 so they are never drawn."""
+    size = len(weights)
+    if size == 0:
+        return [0, 0]
+    depth = 1
+    while (1 << depth) < 2 * size:
+        depth += 1
+    num_nodes = 1 << depth
+    nodes = [0] * num_nodes
+    for i, w in enumerate(weights):
+        nodes[2 * i + 1] = int(w) & 0xFFFFFFFF
+    # fill internal nodes bottom-up: node n at height h spans
+    # [n - 2^h + 1, n + 2^h - 1]. Sums wrap mod 2^32 — the reference
+    # stores node_weights as __u32, so both mappers must share the
+    # same wraparound or oracle==vector parity breaks on huge buckets.
+    for h in range(1, depth):
+        step = 1 << (h + 1)
+        first = 1 << h
+        for n in range(first, num_nodes, step):
+            nodes[n] = (nodes[n - (1 << (h - 1))] +
+                        (nodes[n + (1 << (h - 1))]
+                         if n + (1 << (h - 1)) < num_nodes else 0)) \
+                & 0xFFFFFFFF
+    return nodes
+
+
+def calc_straws(weights: list[int]) -> list[int]:
+    """Legacy-straw lengths (ref: src/crush/builder.c crush_calc_straw:
+    items ascending by weight; each weight tier's straw is scaled so
+    the win probability tracks the weight ratio — the approximation
+    whose known bias led to straw2). 16.16 fixed-point outputs.
+
+    Models straw_calc_version=1 semantics: zero-weight items get a
+    zero straw AND are excluded from the tier accounting (numleft
+    decrements) — the v1 fix for the v0 bug where zero weights skewed
+    every later tier. The all-zero-draw winner diverges knowingly:
+    both mapper impls return ITEM_NONE (a failed draw that retries/
+    rejects), where the reference's bucket_straw_choose returns
+    items[0] — i.e. an all-zero-weight straw bucket here places
+    nothing instead of always its first item.
+
+    NOTE: internally pinned (oracle==vector parity + monotonicity
+    tests), not byte-verified against the reference (empty mount —
+    SURVEY.md citation notice). First action if the mount populates:
+    pin calc_straws + zero-straw winner semantics against crushtool
+    output for maps with zero and duplicate weights."""
+    size = len(weights)
+    straws = [0] * size
+    order = sorted(range(size), key=lambda i: (weights[i], i))
+    straw = 1.0
+    numleft = size
+    wbelow = 0.0
+    lastw = 0.0
+    i = 0
+    while i < size:
+        idx = order[i]
+        if weights[idx] == 0:
+            straws[idx] = 0
+            i += 1
+            numleft -= 1
+            continue
+        straws[idx] = int(straw * 0x10000)
+        i += 1
+        if i == size:
+            break
+        if weights[order[i]] == weights[order[i - 1]]:
+            continue  # same tier shares the straw length
+        wbelow += (float(weights[order[i - 1]]) - lastw) * numleft
+        numleft = sum(1 for j in range(i, size)
+                      if weights[order[j]] >= weights[order[i]])
+        wnext = numleft * (weights[order[i]] - weights[order[i - 1]])
+        pbelow = wbelow / (wbelow + wnext)
+        straw *= (1.0 / pbelow) ** (1.0 / numleft)
+        lastw = float(weights[order[i - 1]])
+    return straws
+
+# rule step opcodes (crush.h CRUSH_RULE_*)
+STEP_TAKE = "take"
+STEP_CHOOSE_FIRSTN = "choose_firstn"
+STEP_CHOOSE_INDEP = "choose_indep"
+STEP_CHOOSELEAF_FIRSTN = "chooseleaf_firstn"
+STEP_CHOOSELEAF_INDEP = "chooseleaf_indep"
+STEP_EMIT = "emit"
+
+
+@dataclass
+class Tunables:
+    """Retry knobs (ref: crush_map tunables in crush.h; the 'optimal'
+    profile). choose_total_tries is honored as the vectorized unroll
+    bound, so both mapper impls use the same value."""
+    choose_total_tries: int = 7
+
+
+@dataclass
+class Bucket:
+    id: int                      # negative
+    type_id: int                 # hierarchy level (host=1, rack=2, ...)
+    alg: int
+    items: list[int] = field(default_factory=list)
+    weights: list[int] = field(default_factory=list)  # 16.16 fixed point
+    hash_id: int = 0             # rjenkins1
+    name: str = ""
+
+    @property
+    def size(self) -> int:
+        return len(self.items)
+
+    @property
+    def weight(self) -> int:
+        return sum(self.weights)
+
+
+@dataclass
+class Step:
+    op: str
+    arg: int = 0        # take: bucket id; choose*: numrep (0 = result_max)
+    type_id: int = 0    # choose*: bucket type to select
+
+
+@dataclass
+class Rule:
+    id: int
+    steps: list[Step]
+    name: str = ""
+
+
+class CrushMap:
+    """Builder + container; `pack()` freezes it for the mappers."""
+
+    def __init__(self, tunables: Tunables | None = None):
+        self.buckets: dict[int, Bucket] = {}
+        self.rules: dict[int, Rule] = {}
+        self.types: dict[int, str] = {0: "osd"}
+        self.max_device: int = -1
+        self.tunables = tunables or Tunables()
+        self.root_id: int | None = None  # default take target for rules
+        self._packed = None
+
+    # -- building ----------------------------------------------------------
+
+    def add_type(self, type_id: int, name: str) -> None:
+        self.types[type_id] = name
+
+    def add_bucket(self, bucket_id: int, type_id: int, alg: str,
+                   items: list[int], weights: list[float] | None = None,
+                   name: str = "") -> Bucket:
+        """weights are in 'crush weight' units (1.0 ~ one disk); stored
+        16.16 fixed like the reference."""
+        if bucket_id >= 0:
+            raise ValueError(f"bucket ids are negative, got {bucket_id}")
+        if bucket_id in self.buckets:
+            raise ValueError(f"duplicate bucket id {bucket_id}")
+        if alg not in _SUPPORTED_ALGS:
+            raise ValueError(
+                f"bucket alg {alg!r} unsupported (supported: "
+                f"{sorted(_SUPPORTED_ALGS)})")
+        if weights is None:
+            weights = [1.0] * len(items)
+        if len(weights) != len(items):
+            raise ValueError("items/weights length mismatch")
+        b = Bucket(bucket_id, type_id, _SUPPORTED_ALGS[alg],
+                   list(items), [int(round(w * 0x10000)) for w in weights],
+                   name=name or f"bucket{bucket_id}")
+        self.buckets[bucket_id] = b
+        for it in items:
+            if it >= 0:
+                self.max_device = max(self.max_device, it)
+        self._packed = None
+        return b
+
+    def add_rule(self, rule_id: int, steps: list[Step], name: str = "") -> Rule:
+        r = Rule(rule_id, steps, name or f"rule{rule_id}")
+        self.rules[rule_id] = r
+        self._packed = None
+        return r
+
+    def item_type(self, item: int) -> int:
+        if item >= 0:
+            return 0
+        return self.buckets[item].type_id
+
+    def parent_of(self, item: int) -> int | None:
+        """The bucket directly containing `item` (device or bucket),
+        or None at the root. Reverse map built lazily and rebuilt
+        whenever the bucket set changed — topology edits are rare,
+        lookups ride every repair-budget grant."""
+        cache = getattr(self, "_parent_cache", None)
+        if cache is None or cache[0] != len(self.buckets):
+            parents: dict[int, int] = {}
+            for bid, b in self.buckets.items():
+                for it in b.items:
+                    parents[it] = bid
+            cache = (len(self.buckets), parents)
+            self._parent_cache = cache
+        return cache[1].get(item)
+
+    def domain_of(self, item: int, type_id: int = 2) -> int:
+        """The ancestor bucket of `type_id` (rack by default — the
+        failure-domain key the repair bandwidth budgets bucket by).
+        Falls back to the highest ancestor found when the hierarchy
+        has no bucket of that type (flat test maps: everything shares
+        one domain, budgets degrade to a single global bucket)."""
+        cur = item
+        seen = 0
+        while seen < 64:                # cycle guard
+            parent = self.parent_of(cur)
+            if parent is None:
+                return cur if cur < 0 else 0
+            if self.buckets[parent].type_id == type_id:
+                return parent
+            cur = parent
+            seen += 1
+        return cur
+
+    @property
+    def n_devices(self) -> int:
+        return self.max_device + 1
+
+    def validate(self) -> None:
+        for b in self.buckets.values():
+            for it in b.items:
+                if it < 0 and it not in self.buckets:
+                    raise ValueError(f"bucket {b.id} references missing {it}")
+        for r in self.rules.values():
+            if not r.steps or r.steps[0].op != STEP_TAKE:
+                raise ValueError(f"rule {r.id} must start with take")
+            if r.steps[-1].op != STEP_EMIT:
+                raise ValueError(f"rule {r.id} must end with emit")
+
+    def depth_below(self, item: int, _seen=None) -> int:
+        """Max descent depth from item to a device (0 for a device)."""
+        if item >= 0:
+            return 0
+        seen = _seen or set()
+        if item in seen:
+            raise ValueError(f"bucket cycle at {item}")
+        b = self.buckets[item]
+        if not b.items:
+            return 1
+        return 1 + max(self.depth_below(i, seen | {item}) for i in b.items)
+
+    # -- wire form (ref: CrushWrapper::encode/decode) -----------------------
+
+    def encode(self) -> bytes:
+        """Versioned wire form (ref: src/crush/CrushWrapper encode —
+        buckets, rules, types, tunables; here via the repo's
+        utils/encoding.py section protocol)."""
+        from ..utils.encoding import Encoder
+        e = Encoder().start(1, 1)
+        e.i32(self.max_device)
+        e.boolean(self.root_id is not None)
+        if self.root_id is not None:
+            e.i32(self.root_id)
+        e.u32(self.tunables.choose_total_tries)
+        e.mapping(self.types, lambda en, k: en.i32(k),
+                  lambda en, v: en.string(v))
+        def enc_bucket(en, b: Bucket):
+            en.start(1, 1)
+            en.i32(b.id).i32(b.type_id).u8(b.alg).u8(b.hash_id)
+            en.string(b.name)
+            en.list(b.items, lambda e2, it: e2.i32(it))
+            en.list(b.weights, lambda e2, w: e2.i64(w))
+            en.finish()
+        e.list(sorted(self.buckets.values(), key=lambda b: -b.id),
+               enc_bucket)
+        def enc_rule(en, r: Rule):
+            en.start(1, 1)
+            en.i32(r.id).string(r.name)
+            def enc_step(e2, s: Step):
+                e2.string(s.op).i64(s.arg).i32(s.type_id)
+            en.list(r.steps, enc_step)
+            en.finish()
+        e.list(sorted(self.rules.values(), key=lambda r: r.id), enc_rule)
+        return e.finish().bytes()
+
+    @classmethod
+    def decode(cls, data: bytes) -> "CrushMap":
+        from ..utils.encoding import Decoder
+        d = Decoder(data)
+        d.start(1)
+        m = cls()
+        m.max_device = d.i32()
+        if d.boolean():
+            m.root_id = d.i32()
+        m.tunables = Tunables(choose_total_tries=d.u32())
+        m.types = d.mapping(lambda dd: dd.i32(), lambda dd: dd.string())
+        def dec_bucket(dd) -> Bucket:
+            dd.start(1)
+            b = Bucket(dd.i32(), dd.i32(), dd.u8(), hash_id=0)
+            b.hash_id = dd.u8()
+            b.name = dd.string()
+            b.items = dd.list(lambda e2: e2.i32())
+            b.weights = dd.list(lambda e2: e2.i64())
+            dd.finish()
+            return b
+        for b in d.list(dec_bucket):
+            m.buckets[b.id] = b
+        def dec_rule(dd) -> Rule:
+            dd.start(1)
+            rid, name = dd.i32(), dd.string()
+            steps = dd.list(lambda e2: Step(e2.string(), e2.i64(),
+                                            e2.i32()))
+            dd.finish()
+            return Rule(rid, steps, name)
+        for r in d.list(dec_rule):
+            m.rules[r.id] = r
+        d.finish()
+        m.validate()
+        return m
+
+    # -- packing -----------------------------------------------------------
+
+    def pack(self) -> "PackedMap":
+        if self._packed is None:
+            self.validate()
+            self._packed = PackedMap(self)
+        return self._packed
+
+
+class PackedMap:
+    """Dense array view of a CrushMap for the vectorized mapper.
+
+    Bucket row r holds bucket id -(r+1). Item/weight matrices are padded
+    with CRUSH_ITEM_NONE / 0 to the max bucket size.
+    """
+
+    def __init__(self, m: CrushMap):
+        self.map = m
+        ids = sorted(m.buckets, reverse=True)  # -1, -2, ...
+        nrows = (-min(ids)) if ids else 0
+        self.n_buckets = nrows
+        maxsz = max((b.size for b in m.buckets.values()), default=1)
+        self.max_size = max(maxsz, 1)
+        self.items = np.full((nrows, self.max_size), CRUSH_ITEM_NONE,
+                             dtype=np.int32)
+        self.weights = np.zeros((nrows, self.max_size), dtype=np.int64)
+        self.size = np.zeros(nrows, dtype=np.int32)
+        self.alg = np.zeros(nrows, dtype=np.int32)
+        self.type_id = np.zeros(nrows, dtype=np.int32)
+        self.bucket_weight = np.zeros(nrows, dtype=np.int64)
+        # per-slot cumulative weights head..i (list buckets)
+        self.sum_weights = np.zeros((nrows, self.max_size), dtype=np.int64)
+        for bid, b in m.buckets.items():
+            r = -1 - bid
+            self.size[r] = b.size
+            self.alg[r] = b.alg
+            self.type_id[r] = b.type_id
+            self.items[r, :b.size] = b.items
+            self.weights[r, :b.size] = b.weights
+            self.bucket_weight[r] = b.weight
+            self.sum_weights[r, :b.size] = np.cumsum(b.weights)
+        # legacy-alg aux tables, only materialized when used:
+        # tree node-weight rows (padded to the largest num_nodes) and
+        # straw lengths (16.16)
+        algs = set(int(a) for a in self.alg)
+        self.tree_nodes = None
+        self.tree_num_nodes = None
+        if ALG_TREE in algs:
+            rows = {(-1 - bid): calc_tree_nodes(b.weights)
+                    for bid, b in m.buckets.items() if b.alg == ALG_TREE}
+            mn = max(len(v) for v in rows.values())
+            self.tree_nodes = np.zeros((nrows, mn), dtype=np.int64)
+            self.tree_num_nodes = np.ones(nrows, dtype=np.int32)
+            for r, v in rows.items():
+                self.tree_nodes[r, :len(v)] = v
+                self.tree_num_nodes[r] = len(v)
+        self.straws = None
+        if ALG_STRAW in algs:
+            self.straws = np.zeros((nrows, self.max_size), dtype=np.int64)
+            for bid, b in m.buckets.items():
+                if b.alg == ALG_STRAW:
+                    r = -1 - bid
+                    self.straws[r, :b.size] = calc_straws(b.weights)
+        self.max_depth = max((m.depth_below(bid) for bid in m.buckets), default=0)
+        # per-alg max sizes so the mapper can bound its unrolls tightly
+        self.max_size_by_alg = {}
+        for b in m.buckets.values():
+            cur = self.max_size_by_alg.get(b.alg, 1)
+            self.max_size_by_alg[b.alg] = max(cur, b.size)
+
+
+# -- convenience map builders (test/bench topologies) ----------------------
+
+def build_hierarchy(n_osds: int, osds_per_host: int = 8,
+                    hosts_per_rack: int = 16, alg: str = "straw2",
+                    osd_weight: float = 1.0) -> CrushMap:
+    """root -> racks -> hosts -> osds, the standard test topology
+    (what crushtool --build produces for layered maps)."""
+    m = CrushMap()
+    m.add_type(1, "host")
+    m.add_type(2, "rack")
+    m.add_type(3, "root")
+    n_hosts = -(-n_osds // osds_per_host)
+    n_racks = -(-n_hosts // hosts_per_rack)
+    next_id = -1
+    host_ids = []
+    for h in range(n_hosts):
+        osds = list(range(h * osds_per_host,
+                          min((h + 1) * osds_per_host, n_osds)))
+        hid = next_id
+        next_id -= 1
+        m.add_bucket(hid, 1, alg, osds, [osd_weight] * len(osds),
+                     name=f"host{h}")
+        host_ids.append(hid)
+    rack_ids = []
+    for rck in range(n_racks):
+        hs = host_ids[rck * hosts_per_rack:(rck + 1) * hosts_per_rack]
+        rid = next_id
+        next_id -= 1
+        m.add_bucket(rid, 2, alg, hs,
+                     [m.buckets[h].weight / 0x10000 for h in hs],
+                     name=f"rack{rck}")
+        rack_ids.append(rid)
+    root_id = next_id
+    m.add_bucket(root_id, 3, alg, rack_ids,
+                 [m.buckets[r].weight / 0x10000 for r in rack_ids],
+                 name="root")
+    m.root_id = root_id
+    return m
+
+
+def _resolve_root(m: CrushMap, root: int | None) -> int:
+    if root is None:
+        root = m.root_id
+    if root is None:
+        raise ValueError(
+            "no take target: pass root= or set map.root_id "
+            "(build_hierarchy sets it automatically)")
+    return root
+
+
+def replicated_rule(m: CrushMap, rule_id: int = 0, choose_type: int = 1,
+                    firstn: bool = True, root: int | None = None) -> Rule:
+    """take root -> chooseleaf (host) -> emit, the default pool rule."""
+    op = STEP_CHOOSELEAF_FIRSTN if firstn else STEP_CHOOSELEAF_INDEP
+    return m.add_rule(rule_id, [
+        Step(STEP_TAKE, arg=_resolve_root(m, root)),
+        Step(op, arg=0, type_id=choose_type),
+        Step(STEP_EMIT),
+    ], name="replicated_rule")
+
+
+def ec_rule(m: CrushMap, rule_id: int = 1, choose_type: int = 1,
+            root: int | None = None) -> Rule:
+    """take root -> chooseleaf_indep (host) -> emit: EC pool placement."""
+    return m.add_rule(rule_id, [
+        Step(STEP_TAKE, arg=_resolve_root(m, root)),
+        Step(STEP_CHOOSELEAF_INDEP, arg=0, type_id=choose_type),
+        Step(STEP_EMIT),
+    ], name="ec_rule")

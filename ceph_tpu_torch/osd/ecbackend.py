@@ -403,10 +403,6 @@ class ECBackend(PGBackend):
 
     _expected_shard_len = _shard_len  # shallow-scrub size rule
 
-    def _batched_hinfo_crcs(self, blocks) -> np.ndarray:
-        """(B, L) rows -> (B,) uint32 raw hinfo CRCs on this device."""
-        return self._batched_crcs(blocks, self.device)
-
     def _encode_shards_with_crcs(self, data_shards: np.ndarray,
                                  sl: int) -> tuple[np.ndarray,
                                                    np.ndarray]:

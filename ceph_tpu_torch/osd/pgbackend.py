@@ -4,7 +4,8 @@ Twin of ceph_tpu/osd/pgbackend.py (ref: src/osd/PGBackend.h). The
 shared machinery — per-slot store plumbing, the PG mutation log with
 per-shard applied cursors (staleness gating), the min-size write gate,
 shallow scrub — lives here; ECBackend (osd/ecbackend.py) lays shards
-out across the acting set. ReplicatedBackend comes with a later slice.
+out across the acting set; ReplicatedBackend (below) keeps a full copy
+in every slot.
 
 Data and metadata stay on the host (MemStore); the batched CRCs run on
 the backend's device.
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from ..csum.kernels import crc32c_blocks
+from ..ec.interface import resolve_device
 from ..ops.rs_kernels import run_bucketed
 from .memstore import MemStore, Transaction
 from .pglog import PGLog
@@ -157,6 +159,11 @@ class PGBackend:
             lambda b: crc32c_blocks(b, init=0xFFFFFFFF, xorout=0),
             to_device(blocks, device))
         return crcs.cpu().numpy().astype(np.uint32)
+
+    def _batched_hinfo_crcs(self, blocks) -> np.ndarray:
+        """(B, L) rows -> (B,) uint32 raw hinfo CRCs on this backend's
+        device."""
+        return self._batched_crcs(blocks, self.device)
 
     def _remove_strays(self, dead: set[int]) -> int:
         """Remove per-slot leftover objects the PG's metadata no
@@ -415,3 +422,429 @@ class PGBackend:
                     continue
                 errors.append((stray, s, "stray object"))
         return {"checked": checked, "errors": errors}
+
+
+class ReplicatedBackend(PGBackend):
+    """Full-copy replication across the acting set (ref:
+    src/osd/ReplicatedBackend.{h,cc} — submit_transaction fans the same
+    transaction out to every replica; recovery pushes whole objects from
+    a surviving replica; be_deep_scrub compares replica digests).
+
+    Every slot stores the complete object plus a HashInfo xattr whose
+    single CRC covers the full byte stream (the data_digest role). The
+    xattr layout matches ECBackend's, so SimCluster's backfill copy loop
+    works unchanged for either pool type. The CRCs run on `device`
+    (None: the CUDA device).
+    """
+
+    def __init__(self, size: int, pg: str, acting: list[int],
+                 cluster=None, min_size: int | None = None,
+                 ensure_collections: bool = True, device=None):
+        if len(acting) != size:
+            raise ValueError(f"acting set size {len(acting)} != size={size}")
+        from .ecbackend import ShardSet
+        self.device = resolve_device(device)
+        self.size = size
+        # the reference default: size - size/2, i.e. ceil(size/2)
+        # (osd_pool_default_min_size=0 behavior) — 2 for size 3 AND 4
+        self.min_live = min_size if min_size is not None \
+            else size - size // 2
+        if not (1 <= self.min_live <= size):
+            raise ValueError(f"min_size {self.min_live} not in [1, {size}]")
+        self._init_common(pg, acting, cluster or ShardSet(),
+                          ensure_collections=ensure_collections)
+        self.eio_stats = {"read_eio": 0, "repaired": 0}
+
+    def _expected_shard_len(self, object_size: int) -> int:
+        return object_size  # every replica holds the whole object
+
+    # -- write path ----------------------------------------------------------
+
+    def _put_full(self, name: str, arr: np.ndarray, crc: int,
+                  live: list[int]) -> None:
+        self._put_group([(name, arr, crc)], live)
+
+    def _put_group(self, items, live: list[int]) -> None:
+        """Fan a group of (name, bytes, crc) puts out as ONE combined
+        transaction per replica (the window's store-apply unit;
+        ROADMAP item 2b — the per-object fan-out cost B*n store
+        transactions and B*n `store.apply` passes where n suffice)."""
+        txns = []
+        for s in live:
+            cid = shard_cid(self.pg, s)
+            t = Transaction()
+            for name, arr, crc in items:
+                hinfo = HashInfo(1, len(arr), [crc])
+                t.write(cid, name, 0, arr) \
+                 .truncate(cid, name, len(arr)) \
+                 .setattr(cid, name, HINFO_KEY, hinfo.to_bytes())
+            txns.append((s, t))
+        self._fanout_txns(txns)
+        for name, arr, _crc in items:
+            self.object_sizes[name] = len(arr)
+            self._log_write(name, live)
+
+    def write_objects(self, objects, dead_osds=None) -> None:
+        """Full-object writes: digest every equal-length group in one
+        batched CRC launch, then fan identical bytes to each live
+        replica (the repop fan-out, minus the network) — one combined
+        transaction per replica per group."""
+        live = self._live_slots(dead_osds)
+        self._check_min_size(live)
+        by_len: dict[int, list[tuple[str, np.ndarray]]] = {}
+        for name, data in objects.items():
+            arr = as_flat_u8(data)
+            by_len.setdefault(len(arr), []).append((name, arr))
+        for olen, group in by_len.items():
+            if olen == 0:
+                self._put_group([(n, a, 0xFFFFFFFF) for n, a in group],
+                                live)
+                continue
+            crcs = self._batched_hinfo_crcs(np.stack([a for _, a in group]))
+            self._put_group([(n, a, int(c))
+                             for (n, a), c in zip(group, crcs)], live)
+
+    def write_ranges(self, ops, dead_osds=None) -> None:
+        """Arbitrary (offset, len) overwrites. Replication needs no RMW
+        of other shards — but the full-object digest does need the
+        pre-image, read from any caught-up live replica."""
+        dead = dead_osds or set()
+        live = self._live_slots(dead)
+        self._check_min_size(live)
+        per_obj: dict[str, list[tuple[int, np.ndarray]]] = {}
+        for name, offset, data in ops:
+            if offset < 0:
+                raise ValueError(f"negative offset {offset}")
+            per_obj.setdefault(name, []).append((int(offset),
+                                                as_flat_u8(data)))
+        staged: list[tuple[str, np.ndarray]] = []
+        for name, writes in per_obj.items():
+            old_size = self.object_sizes.get(name, 0)
+            writes = [(off, a) for off, a in writes if len(a)]
+            if not writes:
+                if name not in self.object_sizes:
+                    self._put_full(name, np.zeros(0, np.uint8),
+                                   0xFFFFFFFF, live)
+                continue
+            new_size = max(old_size,
+                           max(off + len(a) for off, a in writes))
+            buf = np.zeros(new_size, dtype=np.uint8)
+            if old_size:
+                src = self._fresh_for([name], live)
+                if not src:
+                    raise ValueError(
+                        f"no caught-up live replica holds {name!r}; "
+                        f"write blocked until recovery")
+                buf[:old_size] = self._store(src[0]).read(
+                    shard_cid(self.pg, src[0]), name)
+            for off, arr in writes:
+                buf[off:off + len(arr)] = arr
+            staged.append((name, buf))
+        # batched digest per equal new-length group, then ONE combined
+        # txn per replica per group (the grouped put fan-out)
+        by_len: dict[int, list[tuple[str, np.ndarray]]] = {}
+        for name, buf in staged:
+            by_len.setdefault(len(buf), []).append((name, buf))
+        for olen, group in by_len.items():
+            crcs = (self._batched_hinfo_crcs(np.stack([b for _, b in group]))
+                    if olen else [0xFFFFFFFF] * len(group))
+            self._put_group([(n, b, int(c))
+                             for (n, b), c in zip(group, crcs)], live)
+
+    # -- read path -----------------------------------------------------------
+
+    def read_objects(self, names, dead_osds=None,
+                     verify: bool = True,
+                     repair: bool = True,
+                     helper_costs=None) -> dict[str, np.ndarray]:
+        """Serve each object from the first caught-up live replica
+        (primary-first, the reference's default read path), with
+        verify-on-read: a digest mismatch fails over to the next good
+        replica and repairs the rotten copy in place (the read-error
+        EIO path). repair=False fails over without the writeback — the
+        read-only contract of a degraded-read view served by a
+        non-primary (only an activated primary may mutate shards).
+        `helper_costs` (slot -> cost) reorders the candidate replicas
+        cheapest-first — the replicated twin of the EC planner's
+        cost-ranked helper pick."""
+        alive = self._live_slots(dead_osds)
+        out: dict[str, np.ndarray] = {}
+        srcs_of: dict[str, list[int]] = {}
+        # happy path batched per (chosen replica, size): ONE CRC launch
+        # per group, matching the file's batch-per-equal-length
+        # convention everywhere else
+        plan: dict[tuple[int, int], list[str]] = {}
+        for name in names:
+            if name not in self.object_sizes:
+                raise KeyError(f"no object {name!r}")
+            srcs = self._fresh_for([name], alive)
+            if helper_costs:
+                srcs.sort(key=lambda s: (int(helper_costs.get(s, 0)),
+                                         s))
+            if not srcs:
+                raise ValueError(f"no caught-up live replica for {name!r}")
+            if not verify:
+                out[name] = self._store(srcs[0]).read(
+                    shard_cid(self.pg, srcs[0]), name)
+                continue
+            srcs_of[name] = srcs
+            plan.setdefault((srcs[0], self.object_sizes[name]),
+                            []).append(name)
+        suspects: list[str] = []
+        for (s, size), group in plan.items():
+            st = self._store(s)
+            cid = shard_cid(self.pg, s)
+            datas = {n: st.read(cid, n) for n in group}
+            ok_len = [n for n in group if len(datas[n]) == size]
+            for n in group:  # length rot can't even be stacked
+                if n not in ok_len:
+                    self.eio_stats["read_eio"] += 1
+                    suspects.append(n)
+            if not ok_len:
+                continue
+            crcs = (self._batched_hinfo_crcs(
+                np.stack([datas[n] for n in ok_len]))
+                if size else [0xFFFFFFFF] * len(ok_len))
+            for n, crc in zip(ok_len, crcs):
+                hinfo = HashInfo.from_bytes(
+                    st.getattr(cid, n, HINFO_KEY))
+                if int(crc) == hinfo.get_chunk_hash(0):
+                    out[n] = datas[n]
+                else:
+                    self.eio_stats["read_eio"] += 1
+                    suspects.append(n)
+        for name in suspects:  # EIO path: failover + repair
+            out[name] = self._read_failover(name, srcs_of[name],
+                                            {srcs_of[name][0]},
+                                            repair=repair)
+        return out
+
+    def _read_failover(self, name: str, srcs: list[int],
+                       bad: set[int],
+                       repair: bool = True) -> np.ndarray:
+        """Try the remaining fresh replicas in order; the first
+        digest-valid copy wins and repairs every rotten one met
+        (unless repair=False — the read-only degraded view)."""
+        good = None
+        for s in srcs:
+            if s in bad:
+                continue
+            st = self._store(s)
+            cid = shard_cid(self.pg, s)
+            data = st.read(cid, name)
+            crc = (int(self._batched_hinfo_crcs(data[None, :])[0])
+                   if data.size else 0xFFFFFFFF)
+            hinfo = HashInfo.from_bytes(st.getattr(cid, name,
+                                                   HINFO_KEY))
+            if crc == hinfo.get_chunk_hash(0) \
+                    and len(data) == self.object_sizes[name]:
+                good = data
+                break
+            self.eio_stats["read_eio"] += 1
+            bad.add(s)
+        if good is None:
+            raise ValueError(
+                f"every replica of {name!r} fails its digest")
+        if repair:
+            for s in bad:
+                self._rewrite_replica(name, s, good)
+        return good
+
+    def _rewrite_replica(self, name: str, s: int,
+                         good: np.ndarray) -> None:
+        crc = (int(self._batched_hinfo_crcs(good[None, :])[0])
+               if good.size else 0xFFFFFFFF)
+        hinfo = HashInfo(1, len(good), [crc])
+        t = (Transaction()
+             .write(shard_cid(self.pg, s), name, 0, good)
+             .truncate(shard_cid(self.pg, s), name, len(good))
+             .setattr(shard_cid(self.pg, s), name,
+                      HINFO_KEY, hinfo.to_bytes()))
+        self._store(s).queue_transaction(t)
+        self.eio_stats["repaired"] += 1
+
+    def repair_pg(self, dead_osds: set[int] | None = None) -> dict:
+        """`ceph pg repair`: deep-scrub, rewrite every inconsistent
+        replica the scrub flagged from a digest-valid copy (not just
+        the ones a read would stumble over). Dead slots are recovery's
+        job, not repair's; replicas the verified read already fixed in
+        passing are not rewritten (or counted) twice."""
+        dead = dead_osds or set()
+        rep = self.deep_scrub(dead_osds=dead)
+        alive_set = set(self._live_slots(dead))
+        by_name: dict[str, list[int]] = {}
+        skipped = 0
+        for name, slot in rep["inconsistent"]:
+            if slot not in alive_set or name not in self.object_sizes:
+                skipped += 1
+                continue
+            by_name.setdefault(name, []).append(slot)
+        repaired = 0
+        for name, slots in sorted(by_name.items()):
+            good = self.read_objects([name], dead_osds,
+                                     verify=True)[name]
+            want_crc = (int(self._batched_hinfo_crcs(good[None, :])[0])
+                        if good.size else 0xFFFFFFFF)
+            for s in slots:
+                st = self._store(s)
+                cid = shard_cid(self.pg, s)
+                cur = st.read(cid, name)
+                cur_crc = (int(self._batched_hinfo_crcs(cur[None, :])[0])
+                           if cur.size else 0xFFFFFFFF)
+                if cur_crc == want_crc:
+                    continue  # the verified read repaired it already
+                self._rewrite_replica(name, s, good)
+                repaired += 1
+        return {"checked": rep["checked"], "repaired": repaired,
+                "objects": len(by_name), "skipped": skipped,
+                "strays_removed": self._remove_strays(dead)}
+
+    # -- recovery ------------------------------------------------------------
+
+    def recover_shards(self, lost_shards, replacement_osds=None,
+                       batch: int = 128, verify_hinfo: bool = True,
+                       names=None, helper_exclude=None,
+                       helper_costs=None) -> dict:
+        """Rebuild lost replicas by pushing verified copies from a
+        surviving replica (ref: ReplicatedBackend::recover_object /
+        prep_push). Copies are batched per equal length so the source-
+        verify CRC is one device launch per group. `helper_costs`
+        orders the candidate push sources cheapest-first.
+
+        Same signature/counters as ECBackend.recover_shards so
+        SimCluster's repeer/backfill/catch-up paths drive either."""
+        lost = sorted(set(lost_shards))
+        excluded = helper_exclude or set()
+        full_plan = names is None
+        names = sorted(self.object_sizes) if names is None \
+            else sorted(set(names))
+        provided = set(names)
+        # a deletes-only replay pushes nothing and needs no source
+        rebuild = [n for n in names if n in self.object_sizes]
+        survivors: list[int] = []
+        if rebuild:
+            survivors = self._fresh_for(
+                rebuild, [s for s in range(self.n)
+                          if s not in lost and s not in excluded])
+            if helper_costs:
+                survivors.sort(
+                    key=lambda s: (int(helper_costs.get(s, 0)), s))
+            if not survivors:
+                raise ValueError(
+                    "no caught-up surviving replica to push from")
+        repl = replacement_osds or {}
+        for s in lost:
+            new_osd = repl.get(s, self.acting[s])
+            self.acting[s] = new_osd
+            t = Transaction().create_collection(shard_cid(self.pg, s))
+            self.cluster.osd(new_osd).queue_transaction(t)
+        counters = {"objects": 0, "bytes": 0, "hinfo_failures": 0}
+        # names whose last log entry was a DELETE replay as removals
+        names = self._replay_deletes(lost, names)
+
+        by_len: dict[int, list[str]] = {}
+        for name in names:
+            by_len.setdefault(self.object_sizes[name], []).append(name)
+        for olen, group in by_len.items():
+            for i in range(0, len(group), batch):
+                sub = group[i:i + batch]
+                self._push_batch(sub, olen, lost, survivors,
+                                 verify_hinfo, counters)
+        self._mark_caught_up(lost, full_plan, provided)
+        return counters
+
+    def _push_batch(self, sub: list[str], olen: int, lost: list[int],
+                    survivors: list[int], verify: bool,
+                    counters: dict) -> None:
+        src = survivors[0]
+        cid_src = shard_cid(self.pg, src)
+        st = self._store(src)
+        data = [st.read(cid_src, n) for n in sub]
+        crcs = [0xFFFFFFFF] * len(sub)
+        if olen:
+            crcs = [int(c) for c in
+                    self._batched_hinfo_crcs(np.stack(data))]
+        for ni, name in enumerate(sub):
+            want = HashInfo.from_bytes(
+                st.getattr(cid_src, name, HINFO_KEY)).get_chunk_hash(0)
+            if verify and olen and crcs[ni] != want:
+                # source copy is corrupt: try the other survivors (the
+                # read-error failover the reference does on pull)
+                counters["hinfo_failures"] += 1
+                for alt in survivors[1:]:
+                    cid_a = shard_cid(self.pg, alt)
+                    cand = self._store(alt).read(cid_a, name)
+                    cc = int(self._batched_hinfo_crcs(cand[None, :])[0])
+                    aw = HashInfo.from_bytes(self._store(alt).getattr(
+                        cid_a, name, HINFO_KEY)).get_chunk_hash(0)
+                    if cc == aw:
+                        data[ni], crcs[ni] = cand, cc
+                        break
+                else:
+                    raise ValueError(
+                        f"all surviving replicas of {name!r} fail digest")
+        # ONE combined txn per recovering replica for the whole batch
+        # (was one per (object, slot)), fanned out pipelined
+        txns = []
+        for s in lost:
+            cid = shard_cid(self.pg, s)
+            t = Transaction()
+            for ni, name in enumerate(sub):
+                hinfo = HashInfo(1, olen, [crcs[ni]])
+                t.write(cid, name, 0, data[ni]) \
+                 .truncate(cid, name, olen) \
+                 .setattr(cid, name, HINFO_KEY, hinfo.to_bytes())
+                counters["bytes"] += olen
+            txns.append((s, t))
+        self._fanout_txns(txns)
+        counters["objects"] += len(sub)
+
+    # -- scrub ---------------------------------------------------------------
+
+    def deep_scrub(self, dead_osds: set[int] | None = None) -> dict:
+        """Read every LIVE replica of every object, verify its stored
+        digest (batched CRC per replica), and cross-check replicas
+        agree (ref: be_deep_scrub + the scrubber's authoritative-copy
+        compare). Dead slots are skipped — touching their stores would
+        resurrect destroyed OSD ids."""
+        dead = dead_osds or set()
+        bad: list[tuple[str, int]] = []
+        checked = 0
+        digests: dict[str, set[int]] = {}
+        for s in range(self.n):
+            if self.acting[s] in dead:
+                continue
+            store = self._store(s)
+            cid = shard_cid(self.pg, s)
+            # a replica that missed an object's last write is behind
+            # (pending replay), not corrupt — the scrubber's "missing"
+            # bucket; filter BEFORE reading so stale rows cost nothing
+            # strays (objects the PG metadata doesn't know — e.g. a
+            # non-primary rejoiner's divergent leftovers) may lack
+            # hinfo entirely: they are repair's to REMOVE, not the
+            # digest audit's to crash on
+            names = [n for n in store.list_objects(cid)
+                     if n in self.object_sizes
+                     and self.shard_applied[s]
+                     >= self.object_versions.get(n, 0)]
+            by_len: dict[int, list[str]] = {}
+            for n in names:
+                by_len.setdefault(store.stat(cid, n), []).append(n)
+            for ln, group in by_len.items():
+                if ln:
+                    crcs = self._batched_hinfo_crcs(
+                        np.stack([store.read(cid, n) for n in group]))
+                else:
+                    crcs = [0xFFFFFFFF] * len(group)
+                for n, c in zip(group, crcs):
+                    hinfo = HashInfo.from_bytes(
+                        store.getattr(cid, n, HINFO_KEY))
+                    checked += 1
+                    if hinfo.get_chunk_hash(0) != int(c):
+                        bad.append((n, s))
+                    digests.setdefault(n, set()).add(int(c))
+        # replicas that all self-verify but disagree with each other
+        # (e.g. a stale-but-internally-consistent copy)
+        split = [n for n, ds in digests.items() if len(ds) > 1]
+        return {"checked": checked, "inconsistent": bad,
+                "digest_mismatch": sorted(split)}

@@ -1,0 +1,390 @@
+"""mClock op scheduler — QoS-tagged dequeue for the OSD op path.
+
+Rebuild of the reference's scheduler (ref: src/osd/scheduler/
+mClockScheduler.{h,cc}, which wraps the dmclock library's
+PullPriorityQueue; op classes ref: src/osd/scheduler/OpSchedulerItem.h —
+client, background_recovery, background_best_effort, scrub...). The
+algorithm is the published mClock/dmClock tagging scheme:
+
+Each class has (reservation ρ, weight w, limit λ) in ops-per-second.
+Every enqueued op gets three tags from its class state:
+
+    R = max(now, R_prev + cost/ρ)     (reservation spacing)
+    L = max(now, L_prev + cost/λ)     (limit spacing)
+    P = max(now, P_prev) + cost/w     (proportional-share spacing)
+
+Dequeue at time `now`:
+ 1. constraint phase: among classes whose head R-tag <= now, pick the
+    smallest R-tag (reservations are met first, in tag order);
+ 2. weight phase: otherwise, among classes whose head L-tag <= now,
+    pick the smallest P-tag (spare capacity split by weight);
+ 3. else idle (every class is limit-bound).
+
+The scheduler is clock-agnostic: `dequeue(now)` takes the caller's
+time, so SimCluster drives it with virtual time and real daemons could
+drive it with wall time. Weight tags use a per-class "virtual start"
+bumped to now on idle->busy transitions so an idle class doesn't bank
+credit forever (dmclock's idle-adjustment).
+
+Classes are DYNAMIC: beyond the fixed op-class split (client /
+background_recovery / scrub ...), the wire OSD registers one class per
+client entity ("tenant:<entity>", see OSDDaemon._client_class) via
+ensure_class(), each with its own (ρ, w, λ) resolved from the
+osd_mclock_scheduler_tenant_* config — the per-client dmclock deployment
+shape from the mClock paper, so one heavy tenant (or its hedged
+duplicates) competes under its own tags instead of riding the shared
+client class. Idle tenant classes cost one tag comparison per dequeue
+and are not garbage-collected (tenant counts here are tens, not
+millions).
+
+TPU relevance: the scheduler is the admission layer that decides WHICH
+batch the device runs next (client encode vs recovery decode vs scrub
+CRC); keeping it cost-aware keeps recovery from starving client
+latency, the exact failure mode mClock exists to prevent in the
+reference OSD.
+"""
+
+from __future__ import annotations
+
+import heapq
+import itertools
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ClientProfile:
+    """(ρ, w, λ) in ops/s; λ == 0 means unlimited (no limit phase)."""
+    reservation: float = 0.0
+    weight: float = 1.0
+    limit: float = 0.0
+
+    def __post_init__(self):
+        if self.reservation < 0 or self.weight <= 0 or self.limit < 0:
+            raise ValueError(f"bad profile {self}")
+        if self.limit and self.reservation > self.limit:
+            raise ValueError(f"reservation {self.reservation} > limit "
+                             f"{self.limit}")
+
+
+# the reference's built-in profile split (high_client_ops-ish defaults):
+# clients get a guaranteed floor and most of the weight; recovery gets a
+# floor but a ceiling too; scrub/best-effort scavenge spare capacity
+DEFAULT_PROFILES = {
+    "client": ClientProfile(reservation=50.0, weight=10.0, limit=0.0),
+    "background_recovery": ClientProfile(reservation=25.0, weight=5.0,
+                                         limit=100.0),
+    "background_best_effort": ClientProfile(reservation=0.0, weight=2.0,
+                                            limit=0.0),
+    "scrub": ClientProfile(reservation=0.0, weight=1.0, limit=50.0),
+}
+
+
+def parse_profile(spec: str) -> ClientProfile:
+    """'res,wgt,lim' -> ClientProfile (ops/s-space; lim 0 = unlimited).
+    The value grammar of the osd_mclock_scheduler_tenant_default
+    option."""
+    parts = [p.strip() for p in str(spec).split(",")]
+    if len(parts) != 3:
+        raise ValueError(f"bad profile spec {spec!r} "
+                         f"(want 'res,wgt,lim')")
+    res, wgt, lim = (float(p) for p in parts)
+    return ClientProfile(reservation=res, weight=wgt, limit=lim)
+
+
+def parse_profile_table(spec: str) -> dict[str, ClientProfile]:
+    """'entityA=r,w,l;entityB=r,w,l' -> per-tenant profile table (the
+    osd_mclock_scheduler_tenant_profiles grammar). Empty items are
+    skipped so trailing ';' is legal."""
+    out: dict[str, ClientProfile] = {}
+    for item in str(spec).split(";"):
+        item = item.strip()
+        if not item:
+            continue
+        ent, eq, prof = item.partition("=")
+        if not eq or not ent.strip():
+            raise ValueError(f"bad tenant profile item {item!r} "
+                             f"(want 'entity=res,wgt,lim')")
+        out[ent.strip()] = parse_profile(prof)
+    return out
+
+
+class TokenBucket:
+    """Clock-agnostic token bucket (rate units/s, burst capacity).
+    `take(cost, now)` returns 0.0 when the tokens were granted, else
+    the seconds until `cost` tokens will exist — the caller defers
+    that long instead of busy-polling. Like the mClock tags, `now` is
+    the caller's clock, so SimCluster/scale_sim drive it in virtual
+    time and the wire tier in wall time."""
+
+    __slots__ = ("rate", "burst", "tokens", "stamp", "granted",
+                 "throttled")
+
+    def __init__(self, rate: float, burst: float,
+                 now: float = 0.0):
+        if rate <= 0 or burst <= 0:
+            raise ValueError(f"rate {rate} / burst {burst} must be > 0")
+        self.rate = float(rate)
+        self.burst = float(burst)
+        self.tokens = float(burst)      # start full: the first burst
+        #                                 after an idle period is free
+        self.stamp = float(now)
+        self.granted = 0.0
+        self.throttled = 0
+
+    def _refill(self, now: float) -> None:
+        if now > self.stamp:
+            self.tokens = min(self.burst,
+                              self.tokens + (now - self.stamp)
+                              * self.rate)
+        self.stamp = max(self.stamp, now)
+
+    def take(self, cost: float, now: float) -> float:
+        """Grant `cost` tokens (0.0) or the wait until they refill.
+        Costs above the burst still clear — the bucket goes negative
+        ONCE and the debt repays at `rate` (one oversized recovery
+        batch must throttle the NEXT grant, not deadlock forever)."""
+        self._refill(now)
+        if self.tokens >= cost or self.tokens >= self.burst:
+            self.tokens -= cost
+            self.granted += cost
+            return 0.0
+        self.throttled += 1
+        return (cost - self.tokens) / self.rate
+
+    def retune(self, rate: float, burst: float) -> None:
+        """Live budget change: tokens clamp into the new burst."""
+        if rate <= 0 or burst <= 0:
+            raise ValueError(f"rate {rate} / burst {burst} must be > 0")
+        self.rate = float(rate)
+        self.burst = float(burst)
+        self.tokens = min(self.tokens, self.burst)
+
+    def dump(self) -> dict:
+        return {"rate": self.rate, "burst": self.burst,
+                "tokens": round(self.tokens, 1),
+                "granted": round(self.granted, 1),
+                "throttled": self.throttled}
+
+
+class DomainBudgets:
+    """Per-failure-domain repair bandwidth budgets: one TokenBucket
+    per CRUSH domain (rack by default), created lazily on first grant.
+    Buckets are INDEPENDENT — domain A draining to zero never delays a
+    grant whose helpers live in domain B (the starvation-freedom
+    property the repair-policy tests pin). Rate/burst re-resolve on
+    every request so a committed `config set
+    osd_repair_domain_budget_mbps` retunes live buckets in place."""
+
+    def __init__(self):
+        self._buckets: dict = {}
+
+    def request(self, domain_bytes: "dict[object, float]", rate: float,
+                burst: float, now: float) -> float:
+        """Draw `domain_bytes[d]` bytes from every involved domain's
+        bucket. Returns 0.0 when every domain granted, else the
+        longest wait among the refusing domains — and REFUNDS the
+        domains that did grant (an all-or-nothing draw, so a
+        two-domain pull cannot leak tokens it never used)."""
+        taken: list[tuple[TokenBucket, float]] = []
+        wait = 0.0
+        for dom, nbytes in domain_bytes.items():
+            b = self._buckets.get(dom)
+            if b is None:
+                b = self._buckets[dom] = TokenBucket(rate, burst,
+                                                     now=now)
+            elif b.rate != rate or b.burst != burst:
+                b.retune(rate, burst)
+            w = b.take(float(nbytes), now)
+            if w > 0.0:
+                wait = max(wait, w)
+            else:
+                taken.append((b, float(nbytes)))
+        if wait > 0.0:
+            for b, nbytes in taken:
+                b.tokens = min(b.burst, b.tokens + nbytes)
+                b.granted -= nbytes
+        return wait
+
+    def dump(self) -> dict:
+        return {str(d): b.dump()
+                for d, b in sorted(self._buckets.items(),
+                                   key=lambda kv: str(kv[0]))}
+
+
+class _ClassQueue:
+    __slots__ = ("profile", "items", "r_prev", "l_prev", "p_prev",
+                 "busy", "served", "served_cost", "throttled")
+
+    def __init__(self, profile: ClientProfile):
+        self.profile = profile
+        self.items: list = []       # heap of (seq, item, cost) FIFO
+        self.r_prev = 0.0
+        self.l_prev = 0.0
+        self.p_prev = 0.0
+        self.busy = False
+        self.served = 0             # ops granted (occupancy dumps)
+        self.served_cost = 0.0      # cost units granted
+        self.throttled = 0          # dequeue passes skipped limit-bound
+
+
+class MClockScheduler:
+    def __init__(self, profiles: dict[str, ClientProfile] | None = None):
+        self._classes: dict[str, _ClassQueue] = {}
+        for name, prof in (profiles or DEFAULT_PROFILES).items():
+            self._classes[name] = _ClassQueue(prof)
+        self._seq = itertools.count()
+        self._len = 0
+
+    def add_class(self, name: str, profile: ClientProfile) -> None:
+        if name in self._classes:
+            raise ValueError(f"class {name!r} exists")
+        self._classes[name] = _ClassQueue(profile)
+
+    def ensure_class(self, name: str, profile: ClientProfile) -> None:
+        """Create-or-retune: the dynamic per-tenant registration path
+        (first op from a new client entity creates its class; a config
+        change retunes it in place, queued ops keep their order)."""
+        q = self._classes.get(name)
+        if q is None:
+            self._classes[name] = _ClassQueue(profile)
+        elif q.profile != profile:
+            self.set_profile(name, profile)
+
+    def class_names(self) -> list[str]:
+        return list(self._classes)
+
+    def remove_if(self, cls: str, pred) -> int:
+        """Drop queued ops of `cls` matching pred(item) — cancelled
+        work must not burn the class's limit budget as no-ops. Returns
+        the count removed."""
+        q = self._classes[cls]
+        keep = [e for e in q.items if not pred(e[1])]
+        removed = len(q.items) - len(keep)
+        if removed:
+            heapq.heapify(keep)
+            q.items = keep
+            self._len -= removed
+        return removed
+
+    def set_profile(self, name: str, profile: ClientProfile) -> None:
+        """Runtime QoS change (the reference's `ceph config set
+        osd_mclock_*` path); queued ops keep their order, tags restart
+        from the next dequeue."""
+        q = self._classes[name]
+        q.profile = profile
+        q.busy = False
+
+    def __len__(self) -> int:
+        return self._len
+
+    def enqueue(self, cls: str, item, cost: float = 1.0) -> None:
+        """cost is in 'op units' — callers scale it by bytes/ops so one
+        huge recovery batch doesn't count like one tiny client op (the
+        reference scales cost by osd_mclock_cost_per_byte)."""
+        if cost <= 0:
+            raise ValueError(f"cost {cost} <= 0")
+        q = self._classes[cls]  # KeyError for unknown class is correct
+        heapq.heappush(q.items, (next(self._seq), item, cost))
+        self._len += 1
+
+    def _head_tags(self, q: _ClassQueue, now: float):
+        """Tags the head op WOULD get if dequeued at `now`."""
+        _, _, cost = q.items[0]
+        p = q.profile
+        if not q.busy:
+            # idle->busy: tags restart from now — no banked credit, and
+            # no arrival penalty (dmclock assigns the first request
+            # R = max(now, ...) = now)
+            r_tag = now if p.reservation else float("inf")
+            l_tag = now
+            p_tag = now + cost / p.weight
+        else:
+            # R spaces from the PREVIOUS TAG, not from now: under
+            # backlog dmclock's arrival-time tags degenerate to pure
+            # spacing, so a late-served reservation keeps its credit
+            # and catches up (no drift). Idle credit is still dropped
+            # by the busy flag above.
+            r_tag = (q.r_prev + cost / p.reservation
+                     if p.reservation else float("inf"))
+            # L spaces purely too: a drain at one discrete virtual
+            # time instant may serve the whole λ*dt allotment of the
+            # elapsed window (SimCluster pumps once per tick step)
+            l_tag = (q.l_prev + cost / p.limit if p.limit else now)
+            p_tag = max(now, q.p_prev) + cost / p.weight
+        return r_tag, l_tag, p_tag
+
+    def dequeue(self, now: float):
+        """Returns (class_name, item) or None when idle/limit-bound."""
+        best_r = best_w = None
+        for name, q in self._classes.items():
+            if not q.items:
+                q.busy = False
+                continue
+            r_tag, l_tag, p_tag = self._head_tags(q, now)
+            if r_tag > now and l_tag > now:
+                # head has queued work but its limit tag is in the
+                # future: this pass the class is LIMIT-BOUND. Count it —
+                # the per-tenant throttle attribution dump_mclock and
+                # the workload engine surface (which tenant mClock is
+                # actually holding back, not just who is slow).
+                q.throttled += 1
+                continue
+            if r_tag <= now and (best_r is None or r_tag < best_r[0]):
+                best_r = (r_tag, name, l_tag, p_tag)
+            if l_tag <= now and (best_w is None or p_tag < best_w[0]):
+                best_w = (p_tag, name, r_tag, l_tag)
+        if best_r is not None:
+            r_tag, name, l_tag, p_tag = best_r
+        elif best_w is not None:
+            p_tag, name, r_tag, l_tag = best_w
+        else:
+            return None
+        q = self._classes[name]
+        _, item, cost = heapq.heappop(q.items)
+        q.r_prev, q.l_prev, q.p_prev = r_tag, l_tag, p_tag
+        q.busy = True
+        q.served += 1
+        q.served_cost += cost
+        self._len -= 1
+        return name, item
+
+    def next_eligible(self, now: float) -> float | None:
+        """Earliest future time a queued head becomes servable, or None
+        when the queue is empty (lets a wall-clock pump sleep precisely
+        instead of polling while every class is limit-bound)."""
+        best = None
+        for q in self._classes.values():
+            if not q.items:
+                continue
+            r_tag, l_tag, _ = self._head_tags(q, now)
+            t = min(r_tag, l_tag)
+            if t <= now:
+                return now
+            if best is None or t < best:
+                best = t
+        return best
+
+    def dump(self) -> dict:
+        """Per-class occupancy + grant counters (the `dump_mclock`
+        admin view; recovery_bench emits this next to perf deltas)."""
+        # snapshot the table: tenant classes appear dynamically from
+        # dispatch threads while admin/bench threads dump
+        return {name: {"queued": len(q.items),
+                       "served": q.served,
+                       "served_cost": round(q.served_cost, 3),
+                       "throttled": q.throttled,
+                       "profile": {"reservation": q.profile.reservation,
+                                   "weight": q.profile.weight,
+                                   "limit": q.profile.limit}}
+                for name, q in list(self._classes.items())}
+
+    def drain(self, now: float, budget: int | None = None) -> list:
+        """Dequeue until idle/limit-bound (or budget ops); the per-tick
+        pump SimCluster uses."""
+        out = []
+        while budget is None or len(out) < budget:
+            got = self.dequeue(now)
+            if got is None:
+                break
+            out.append(got)
+        return out

@@ -1,0 +1,393 @@
+"""Config — typed options with layered sources and change observers.
+
+Rebuild of the reference's config system (ref: src/common/options/
+*.yaml.in option declarations -> md_config_t in src/common/config.cc;
+layering: compiled defaults < conf file < mon ConfigMonitor store <
+env/CLI overrides; runtime reaction via md_config_obs_t observers).
+
+Here options are declared in code (dataclass rows instead of YAML
+codegen), values resolve through the same precedence chain, and
+observers subscribe by key to react to runtime `set` calls — what lets
+a running daemon pick up e.g. a recovery throttle change.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+_LEVELS = ("default", "file", "mon", "override")
+
+
+@dataclass(frozen=True)
+class Option:
+    name: str
+    type: type
+    default: Any
+    description: str = ""
+    min: float | None = None
+    max: float | None = None
+
+    def coerce(self, value):
+        if self.type is bool and isinstance(value, str):
+            low = value.strip().lower()
+            if low in ("true", "1", "yes", "on"):
+                value = True
+            elif low in ("false", "0", "no", "off"):
+                value = False
+            else:
+                raise ValueError(f"{self.name}: bad bool {value!r}")
+        try:
+            value = self.type(value)
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"{self.name}: {e}") from None
+        if self.min is not None and value < self.min:
+            raise ValueError(f"{self.name}: {value} < min {self.min}")
+        if self.max is not None and value > self.max:
+            raise ValueError(f"{self.name}: {value} > max {self.max}")
+        return value
+
+
+# the framework's option schema (the subset of the reference's options
+# that have meaning here; same names where the concept matches)
+OPTIONS: list[Option] = [
+    Option("osd_pool_default_size", int, 3, "replicas for new pools", min=1),
+    Option("osd_pool_default_pg_num", int, 32, "PGs for new pools", min=1),
+    Option("osd_recovery_max_active", int, 3,
+           "concurrent recovery pulls/pushes in flight per OSD (the "
+           "local+remote reservation: bounds outstanding fetch frames "
+           "and sizes the push window)", min=1),
+    Option("osd_recovery_batch", int, 128,
+           "objects per batched recovery launch", min=1),
+    Option("osd_recovery_sleep", float, 0.0,
+           "seconds a recovering OSD waits between recovery batch "
+           "grants (throttles background_recovery under client load; "
+           "0 = no injected sleep)", min=0.0),
+    Option("osd_recovery_max_chunk", int, 8 << 20,
+           "byte budget of one recovery push op (with "
+           "osd_recovery_max_active it bounds the windowed-push "
+           "in-flight bytes: active * chunk)", min=4096),
+    Option("osd_op_num_shards", int, 1,
+           "op-queue shards per OSD daemon (the reference's sharded "
+           "op work queue): ops hash by PG id to a shard, each shard "
+           "drains its own mClock scheduler on its own worker thread "
+           "— per-PG ordering preserved, independent PGs dispatch "
+           "concurrently. Restart-scoped (like the reference); mClock "
+           "reservations are per shard", min=1, max=64),
+    Option("msgr_reactor_workers", int, 1,
+           "epoll reactor threads per messenger (the "
+           "ms_async_op_threads role): connections bind round-robin "
+           "at handshake. Restart-scoped", min=1, max=16),
+    Option("osd_mclock_profile", str, "high_client_ops",
+           "mClock built-in profile for the wire-tier op scheduler "
+           "(high_client_ops | balanced | high_recovery_ops | "
+           "custom; custom reads the osd_mclock_scheduler_* knobs)"),
+    Option("osd_mclock_scheduler_client_res", float, 50.0,
+           "custom profile: client reservation (ops/s)", min=0.0),
+    Option("osd_mclock_scheduler_client_wgt", float, 10.0,
+           "custom profile: client weight", min=0.001),
+    Option("osd_mclock_scheduler_client_lim", float, 0.0,
+           "custom profile: client limit (ops/s; 0 = unlimited)",
+           min=0.0),
+    Option("osd_mclock_scheduler_background_recovery_res", float, 25.0,
+           "custom profile: background_recovery reservation (ops/s)",
+           min=0.0),
+    Option("osd_mclock_scheduler_background_recovery_wgt", float, 5.0,
+           "custom profile: background_recovery weight", min=0.001),
+    Option("osd_mclock_scheduler_background_recovery_lim", float, 100.0,
+           "custom profile: background_recovery limit (ops/s; 0 = "
+           "unlimited)", min=0.0),
+    Option("osd_mclock_scheduler_tenant_default", str, "",
+           "per-tenant QoS: default (res,wgt,lim) profile every client "
+           "entity's tenant class gets, as 'res,wgt,lim' in ops/s "
+           "(empty = each tenant inherits the aggregate client-class "
+           "profile — equal-share QoS per entity)"),
+    Option("osd_mclock_scheduler_tenant_profiles", str, "",
+           "per-tenant QoS overrides, "
+           "'entityA=res,wgt,lim;entityB=res,wgt,lim' keyed by cephx "
+           "entity (messenger peer name without cephx); entities not "
+           "listed fall back to osd_mclock_scheduler_tenant_default"),
+    Option("client_hedge_delay_ms", float, 0.0,
+           "hedged read delay: after this many ms without a reply the "
+           "client duplicates a read to the next-best acting shard as "
+           "a degraded read and takes the first complete answer "
+           "(0 = auto from the client's OpTracker latency history, "
+           "< 0 = hedging off)"),
+    Option("osd_heartbeat_interval", float, 6.0,
+           "seconds between peer pings", min=0.1),
+    Option("osd_heartbeat_grace", float, 20.0,
+           "seconds of silence before reporting a peer down", min=0.1),
+    Option("osd_network_observability", bool, True,
+           "r22: fold heartbeat/store round trips into per-link RTT "
+           "state and ship links+flow in MgrReports (the overhead-"
+           "guard OFF arm flips this; pings themselves are unaffected)"),
+    Option("mon_warn_on_slow_ping_time", float, 0.0,
+           "r22: raise OSD_SLOW_PING_TIME when a link's heartbeat RTT "
+           "ewma exceeds this many MILLISECONDS (0 = derive from "
+           "mon_warn_on_slow_ping_ratio, the reference's fallback)",
+           min=0.0),
+    Option("mon_warn_on_slow_ping_ratio", float, 0.05,
+           "r22: slow-link threshold as a fraction of "
+           "osd_heartbeat_grace when mon_warn_on_slow_ping_time is 0",
+           min=0.0, max=1.0),
+    Option("mgr_netobs_prom_links", int, 8,
+           "r22: worst-N links (by p99) exposed per prometheus "
+           "scrape; the rest are counted in the disclosed "
+           "netobs_links_dropped gauge (cardinality bound)", min=0),
+    Option("mon_osd_down_out_interval", float, 600.0,
+           "seconds down before auto-out"),
+    Option("osd_scrub_auto_repair", bool, False,
+           "repair inconsistencies found by deep scrub"),
+    Option("osd_scrub_interval", float, 0.0,
+           "seconds between scheduled shallow scrubs per PG on the "
+           "wire tier (0 = manual only; the osd_scrub_min_interval "
+           "role)"),
+    Option("osd_deep_scrub_interval", float, 0.0,
+           "seconds between scheduled deep scrubs per PG on the wire "
+           "tier (0 = manual only)"),
+    Option("erasure_code_profile", str,
+           "plugin=tpu_rs k=8 m=3 technique=reed_sol_van",
+           "default EC profile for new EC pools"),
+    Option("crush_choose_total_tries", int, 7,
+           "CRUSH retry rounds (vectorized unroll bound)", min=1, max=64),
+    Option("log_max_recent", int, 1000,
+           "in-memory ring of recent log entries", min=10),
+    Option("debug_level", int, 1, "global log gate", min=-1, max=30),
+    Option("osd_op_complaint_time", float, 30.0,
+           "seconds in flight before an op counts as a slow request "
+           "(the SLOW_OPS health source)", min=0.0),
+    Option("osd_op_history_size", int, 20,
+           "completed ops kept for dump_historic_ops", min=0),
+    Option("osd_op_history_duration", float, 600.0,
+           "seconds a completed op stays in the historic dump", min=0.0),
+    Option("mon_osdmap_full_every", int, 8,
+           "monitors fan out a FULL encoded OSDMap every Nth epoch "
+           "(and on request after a subscriber's delta-chain gap); "
+           "epochs in between ship OSDMap::Incremental deltas — at "
+           "10k OSDs per-epoch churn is a few redirects, not a "
+           "re-encode of the whole topology (1 = always full)",
+           min=1),
+    Option("client_trace_sample_rate", float, 0.01,
+           "fraction of client op frames stamped as SAMPLED trace "
+           "contexts (every frame carries the compact context so slow "
+           "ops can be retroactively assembled; sampled ones record "
+           "spans eagerly at every hop). Hedged/degraded dispatches "
+           "are always sampled; < 0 disables context stamping "
+           "entirely", max=1.0),
+    Option("osd_trace_ring_size", int, 2048,
+           "finished spans a daemon's flight recorder keeps in RAM "
+           "(oldest evicted first; evicted-before-shipped spans are "
+           "counted in the trace dump's dropped_unshipped)", min=16),
+    Option("osd_trace_recovery_sample_rate", float, 1.0,
+           "fraction of mClock recovery-round grants that run under a "
+           "sampled trace context (the recovery/readv_ranges helper "
+           "pulls then record osd.subop spans at their sources)",
+           min=0.0, max=1.0),
+    Option("osd_repair_delay", float, 0.0,
+           "seconds a rebuild for a freshly down OSD stays PARKED "
+           "(lazy repair, the r17 policy plane): a revive inside the "
+           "window cancels the parked work with only a cursor/version "
+           "re-check — no bytes move. 0 = eager (pre-r17 behavior). "
+           "Overridden immediately for stripes at m-1 surviving "
+           "redundancy, for OSDs marked out, and past the deferred-"
+           "stripe budget", min=0.0),
+    Option("osd_repair_deferred_max_stripes", int, 512,
+           "outstanding-stripe budget of lazy repair: when the parked "
+           "rebuilds across a primary exceed this many stripes, new "
+           "deferrals confirm instead (bounds the exposure a patient "
+           "policy can accumulate)", min=1),
+    Option("osd_repair_queue_order", str, "risk",
+           "rebuild queue order on multi-failure events: 'risk' = "
+           "fewest surviving redundancy shards first (ties broken by "
+           "r14 helper cost, then PG id), 'pgid' = the pre-r17 PG-id "
+           "order (kept selectable so the exposure comparison stays "
+           "measurable; risk inversions are counted either way)"),
+    Option("osd_repair_domain_budget_mbps", float, 0.0,
+           "per-CRUSH-failure-domain repair read budget in MB/s: "
+           "recovery grants draw helper bytes from a token bucket "
+           "keyed by each helper's rack, so one rack's burst rebuild "
+           "cannot saturate another rack's uplinks. Enforced through "
+           "the mClock background_recovery grant path (an out-of-"
+           "tokens grant re-queues). 0 = unlimited", min=0.0),
+    Option("osd_repair_domain_burst_mb", float, 16.0,
+           "token-bucket burst capacity per failure domain in MB "
+           "(how much a cold domain may pull before the rate gate "
+           "engages)", min=0.001),
+    Option("osd_recovery_integrity", str, "auto",
+           "recovery integrity mode: 'host' verifies helper CRCs with "
+           "the native SSE4.2 crc32c off-device, 'device' keeps the "
+           "fused decode+fold on-device (the r10 path), 'auto' picks "
+           "host when the native lib is available"),
+    Option("mgr_report_interval", float, 2.0,
+           "seconds between a daemon's MgrReports to the monitors "
+           "(the reference defaults to 5; lower = fresher `ceph "
+           "status` at more control-plane CPU)", min=0.05),
+    Option("mgr_stale_report_grace", float, 15.0,
+           "report age past which a daemon's PGs count as stale "
+           "(the PG_STALE health source)", min=0.1),
+    Option("mgr_history_interval", float, 10.0,
+           "seconds per metric-history interval (r18 telemetry "
+           "plane): each daemon's MetricsHistory ring records one "
+           "counter/histogram delta per wall-clock-aligned interval "
+           "and ships new entries in its MgrReports; 0 disables the "
+           "ring entirely (the overhead-guard OFF arm). Live: a "
+           "committed `config set` retunes running rings", min=0.0),
+    Option("mgr_history_len", int, 90,
+           "per-daemon MetricsHistory ring length in intervals "
+           "(bounds daemon memory; the monitors' cluster series are "
+           "bounded separately)", min=4),
+    Option("mgr_slo_rules", str, "",
+           "declared latency SLO rules, ';'-separated, each "
+           "'<feed>_p<Q> < <value><us|ms|s> over <window><s|m|h>' — "
+           "e.g. 'client_read_p99 < 50ms over 5m'. Feeds: "
+           "client_read/client_write/client_op/subop (merged OSD "
+           "histograms), client_observed (client-shipped), or an "
+           "explicit <logger>.<lhist-key>. Evaluated per history "
+           "interval into fast/slow burn-rate windows; breaches "
+           "surface as the SLO_BURN health check and shrink the "
+           "balancer movement budget. Empty = no SLO evaluation"),
+    Option("mgr_latency_regression_factor", float, 4.0,
+           "LATENCY_REGRESSION sensitivity: warn when a declared SLO "
+           "feed's newest-interval p99 exceeds this multiple of the "
+           "trailing-interval median (needs >= 3 baseline intervals "
+           "and >= 16 samples in the newest; 0 disables the check)",
+           min=0.0),
+    Option("osd_subop_retro_ring", int, 256,
+           "completed store sub-ops a daemon remembers (trace id + "
+           "service/apply windows) so RETRO trace assembly covers "
+           "replica hops too — the r15 gap where replica time "
+           "reported as wire. A primary crossing the complaint "
+           "threshold asks its acting set to publish matching "
+           "retro.subop spans from this ring. 0 disables", min=0),
+    Option("osd_inject_op_delay", float, 0.0,
+           "DEBUG: seconds of sleep injected into every client op's "
+           "execution (the deterministic slowness source the SLO-burn "
+           "tests drive; the osd_debug_inject_dispatch_delay role). "
+           "Live via central config; 0 = off", min=0.0),
+    Option("daemon_profile_hz", float, 10.0,
+           "continuous CPU profiling sample rate (r19): each daemon's "
+           "sampler thread snapshots every thread's Python stack this "
+           "many times a second and folds it into span-tagged "
+           "collapsed stacks (utils/profiler.py). The default is "
+           "sized for always-on use on an oversubscribed host (the "
+           "BENCH_r19 ON/OFF guard bounds it); raise it for a "
+           "focused capture. 0 disables sampling entirely (the "
+           "overhead-guard OFF arm). Live via central config",
+           min=0.0),
+    Option("daemon_profile_ring", int, 64,
+           "per-daemon profile-delta ring length in history intervals "
+           "(the r18 MetricsHistory shape over folded stacks; bounds "
+           "daemon memory, evictions count as dropped_unshipped). "
+           "Live: shrinking trims on the next tick", min=4),
+    Option("osd_inject_cpu_burn", float, 0.0,
+           "DEBUG: seconds of BUSY-SPIN (not sleep) injected into "
+           "every client op's execution, inside the osd.op span — the "
+           "deterministic hot loop the r19 profile-attribution tests "
+           "drive (tools/profile_diff.py must attribute it to the "
+           "op-path category). Live via central config; 0 = off",
+           min=0.0),
+    Option("osd_store_capacity_bytes", int, 0,
+           "store capacity ceiling in bytes (r21 capacity plane): "
+           "statfs() reports this as total and the store raises "
+           "ENOSPC when a transaction would push used past it. "
+           "0 = unbounded (statfs total falls back to the real "
+           "device/RAM view and no ratio ever trips). Live-shrinkable "
+           "per store via set_capacity() for fault injection",
+           min=0),
+    Option("mon_osd_nearfull_ratio", float, 0.85,
+           "used/total ratio at which the leader marks an OSD "
+           "NEARFULL on the committed map (warning only — IO "
+           "continues; the OSD_NEARFULL health source)",
+           min=0.0, max=1.0),
+    Option("osd_backfillfull_ratio", float, 0.90,
+           "used/total ratio at which recovery/backfill INTO an OSD "
+           "parks (client IO continues; urgent m-1 repairs override "
+           "— losing the stripe is worse than an over-full device)",
+           min=0.0, max=1.0),
+    Option("mon_osd_full_ratio", float, 0.95,
+           "used/total ratio at which the leader raises the cluster "
+           "FULL flag: clients park writes (no error surfaced) until "
+           "an epoch clears it; reads and deletes keep serving",
+           min=0.0, max=1.0),
+    Option("osd_failsafe_full_ratio", float, 0.97,
+           "LOCAL hard-stop: an OSD whose own statfs crosses this "
+           "rejects mutating ops even when its map is stale (the "
+           "window between a device filling and the FULL epoch "
+           "arriving must not tear through the last 3%)",
+           min=0.0, max=1.0),
+]
+
+
+class Config:
+    """Layered values + observer fan-out."""
+
+    def __init__(self, schema: list[Option] | None = None):
+        self.schema = {o.name: o for o in (schema or OPTIONS)}
+        self._layers: dict[str, dict[str, Any]] = {lv: {} for lv in _LEVELS}
+        self._observers: dict[str, list[Callable[[str, Any], None]]] = {}
+
+    def _resolve(self, name: str):
+        for level in reversed(_LEVELS):
+            if name in self._layers[level]:
+                return self._layers[level][name]
+        return self.schema[name].default
+
+    def get(self, name: str):
+        if name not in self.schema:
+            raise KeyError(f"unknown option {name!r}")
+        return self._resolve(name)
+
+    def __getitem__(self, name: str):
+        return self.get(name)
+
+    def set(self, name: str, value, level: str = "mon") -> None:
+        """Runtime change (role of `ceph config set`); notifies observers
+        if the resolved value actually changed."""
+        if name not in self.schema:
+            raise KeyError(f"unknown option {name!r}")
+        if level not in _LEVELS:
+            raise ValueError(f"bad level {level!r}; use one of {_LEVELS}")
+        before = self._resolve(name)
+        self._layers[level][name] = self.schema[name].coerce(value)
+        after = self._resolve(name)
+        if after != before:
+            for cb in self._observers.get(name, []):
+                cb(name, after)
+
+    def rm(self, name: str, level: str = "mon") -> None:
+        before = self._resolve(name)
+        self._layers[level].pop(name, None)
+        after = self._resolve(name)
+        if after != before:
+            for cb in self._observers.get(name, []):
+                cb(name, after)
+
+    def load_file(self, pairs: dict[str, Any]) -> None:
+        """Bulk-load a conf-file layer."""
+        for k, v in pairs.items():
+            if k not in self.schema:
+                raise KeyError(f"unknown option {k!r}")
+            self._layers["file"][k] = self.schema[k].coerce(v)
+
+    def observe(self, name: str, cb: Callable[[str, Any], None]) -> None:
+        """Register a change observer (role of md_config_obs_t)."""
+        if name not in self.schema:
+            raise KeyError(f"unknown option {name!r}")
+        self._observers.setdefault(name, []).append(cb)
+
+    def dump(self) -> dict:
+        return {name: self._resolve(name) for name in sorted(self.schema)}
+
+    def diff(self) -> dict:
+        """Non-default values with their source level (`config diff`)."""
+        out = {}
+        for name in self.schema:
+            for level in reversed(_LEVELS):
+                if name in self._layers[level]:
+                    out[name] = {"value": self._layers[level][name],
+                                 "level": level}
+                    break
+        return out
+
+
+g_conf = Config()

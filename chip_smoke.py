@@ -27,7 +27,22 @@ Phases, each of which fails loudly (exit code 1, no result line):
      of shards 0 and 9 through RecoveryRunner (batch 32), repair_pg
      and a clean deep_scrub, one RMW delta wave over 32 objects with
      ragged windows (5 bytes at 3, 4093 bytes at 1 MiB + 7), and a
-     stripe-journal replay; every check bit-exact.
+     stripe-journal replay; every check bit-exact;
+  6. CRUSH placement at BASELINE config #5 (tools/crush_10m.py's map:
+     10,000 OSDs, 10 per host, 25 hosts per rack, the EC indep host
+     rule, numrep 11, full weights) through the VectorMapper on the
+     card: do_rule on 10,000 seeds, 2,000 sampled lanes held bit for
+     bit against the scalar OracleMapper; scan_rule over 10,000,000
+     placements, whose XOR digest must be the JAX package's
+     (CRUSH_10M.json); an OSDMap pool at pg_num 131072 mapped with one
+     pgs_to_up, 2,000 PGs held against pg_to_up_acting_osds;
+  7. the cluster's failure path at full width: SimCluster with 48 OSDs
+     in 12 hosts, 64 PGs of RS k=8 m=3, 256 seeded 4 MiB objects;
+     kill an OSD until the map marks it down (degraded reads bit-exact),
+     destroy it and tick past down_out_interval (out -> CRUSH remap ->
+     recover_shards onto the new acting sets, timed and traced), then
+     kill another, write 32 objects while it is down and revive it
+     before it goes out (the PG-log replay); every read bit-exact.
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
 
@@ -37,6 +52,8 @@ It imports nothing of JAX and nothing of ceph_tpu, and needs one card.
 from __future__ import annotations
 
 import json
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -51,6 +68,27 @@ N_BACKEND = 256
 BATCH = 32
 LOST = (0, 9)
 PROFILE = f"plugin=jerasure technique=reed_sol_van k={K} m={M}"
+
+# BASELINE config #5 (tools/crush_10m.py): its map, rule and lanes
+CRUSH_OSDS = 10_000
+CRUSH_NUMREP = K + M
+CRUSH_PLACEMENTS = 10_000_000
+CRUSH_SUB = 1_000_000        # lanes per scan_rule batch
+CRUSH_LANES = 10_000         # lanes of one do_rule call
+CRUSH_SAMPLE = 2_000         # lanes and PGs held against the oracle
+# the JAX package's scan_rule digest over seeds 0 .. 10,000,000 - 1
+# (CRUSH_10M.json, "digest"; the digest does not depend on the batch
+# size the placements are split into)
+CRUSH_DIGEST = 12828
+# pgcalc: 100 PGs per OSD x 10,000 OSDs / size 11 = 90,909, rounded up
+# to a power of two
+CRUSH_PG_NUM = 131072
+# phase 7: 12 hosts for k+m = 11 shards on a host failure domain
+CLUSTER_OSDS = 48
+CLUSTER_PER_HOST = 4
+CLUSTER_PGS = 64
+CLUSTER_OBJECTS = 256
+CLUSTER_MORE = 32
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 at 3.35 TB/s,
 # int8 tensor cores at 1,979 Tops/s.
@@ -575,6 +613,309 @@ def trace_backend(torch, be, gen) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 6
+
+def _oracle_rows(job) -> list:
+    """Worker: the scalar OracleMapper's rows for a slice of seeds,
+    NONE-padded to n like the VectorMapper's."""
+    crush, rule_id, xs, weights, n = job
+    from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.crush.oracle import OracleMapper
+    om = OracleMapper(crush)
+    return [(om.do_rule(rule_id, int(x), weights, n)
+             + [CRUSH_ITEM_NONE] * n)[:n] for x in xs]
+
+
+def _scalar_up(job) -> list:
+    """Worker: up sets from pg_to_up_acting_osds, the scalar path, on
+    the same map decoded from its wire form."""
+    blob, pool, pss = job
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+    m = OSDMap.decode(blob, device="cpu")
+    return [m.pg_to_up_acting_osds(pool, int(ps))[0] for ps in pss]
+
+
+def on_host_workers(fn, jobs) -> list:
+    """Run the scalar checks in worker processes (spawned, and stopped
+    when the pool closes); results in job order."""
+    n = max(1, min(8, os.cpu_count() or 1, len(jobs)))
+    with multiprocessing.get_context("spawn").Pool(n) as pool:
+        return pool.map(fn, jobs)
+
+
+def slices(items, n: int = 16) -> list:
+    step = -(-len(items) // n)
+    return [items[i:i + step] for i in range(0, len(items), step)]
+
+
+def gather_bytes_per_lane(vm, rule_id: int, numrep: int) -> int:
+    """Table bytes one lane gathers in one round of the rule (every
+    replica once): for each straw2 bucket_choose step of width S, the
+    items (int32), zero-weight flags (bool), weight-table indices and
+    q values (int64) of S slots, plus the bucket's alg, size and type
+    (int32); plus the reweight of the chosen device."""
+    per_rep = 0
+    for widths, leaf_widths in vm._plan(rule_id).values():
+        per_rep += sum(21 * S + 12 for S in widths + leaf_widths) + 4
+    return per_rep * numrep
+
+
+def entry_device(dev) -> dict:
+    """Keyword arguments for an entry point: none on the card, where a
+    user passes none; the device itself for a rehearsal on the CPU."""
+    return {} if dev.type == "cuda" else {"device": dev}
+
+
+def placement_path(torch, dev) -> dict:
+    """CRUSH config #5 through the VectorMapper and the OSDMap on the
+    card; fails unless every sampled lane and PG is the oracle's and the
+    10M digest is the JAX package's."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceph_tpu_torch.crush.map import build_hierarchy, ec_rule
+    from ceph_tpu_torch.crush.mapper import VectorMapper, full_weights
+    from ceph_tpu_torch.osd.osdmap import OSDMap, PGPool
+
+    crush = build_hierarchy(CRUSH_OSDS, osds_per_host=10, hosts_per_rack=25)
+    ec_rule(crush, 1, choose_type=1)
+    w = full_weights(CRUSH_OSDS)
+    n = CRUSH_NUMREP
+    t0 = time.perf_counter()
+    vm = VectorMapper(crush, **entry_device(dev))
+    build_s = time.perf_counter() - t0
+    if vm.device.type != dev.type:
+        fail(f"VectorMapper on {vm.device}")
+    rng = np.random.default_rng(SEED + 6)
+    out = {"map_build_s": build_s, "plan": {str(k): v for k, v in
+                                            vm._plan(1).items()}}
+
+    # (a) 10,000 seeds; 2,000 sampled lanes against the oracle
+    xs = np.arange(CRUSH_LANES, dtype=np.uint32)
+    got = vm.do_rule(1, xs, w, n).cpu().numpy()
+    sample = np.sort(rng.choice(CRUSH_LANES, CRUSH_SAMPLE, replace=False))
+    t0 = time.perf_counter()
+    want = np.concatenate([np.asarray(r, dtype=np.int32).reshape(-1, n)
+                           for r in on_host_workers(_oracle_rows, [
+                               (crush, 1, sl, w, n)
+                               for sl in slices(xs[sample])])])
+    bad = sample[(got[sample] != want).any(axis=1)]
+    if bad.size:
+        fail(f"do_rule differs from the oracle at {bad.size} of "
+             f"{CRUSH_SAMPLE} sampled lanes, first seed {int(bad[0])}: "
+             f"{got[bad[0]].tolist()} != "
+             f"{want[np.searchsorted(sample, bad[0])].tolist()}")
+    log(f"  do_rule({CRUSH_LANES} seeds): {CRUSH_SAMPLE} sampled lanes "
+        f"equal the OracleMapper's bit for bit (oracle "
+        f"{time.perf_counter() - t0:.1f} s on the host)")
+    s0 = vm.host_syncs
+    out["do_rule_10k_ms"] = cuda_ms(lambda: vm.do_rule(1, xs, w, n),
+                                    warm=1, reps=5)
+    out["do_rule_10k_syncs"] = (vm.host_syncs - s0) / 6
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for lanes in (CRUSH_LANES, CRUSH_SUB):
+        seeds = np.arange(lanes, dtype=np.uint32)
+        vm.do_rule(1, seeds, w, n)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            vm.do_rule(1, seeds, w, n)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = device_busy_s(prof)
+        out[f"trace_{lanes}"] = {
+            "wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1 - busy / wall,
+            "device_ops": sum(e.count for e in device_events(prof)),
+            "top_device": [[e.key[:50], e.self_device_time_total / 1e3,
+                            e.count] for e in sorted(
+                device_events(prof),
+                key=lambda e: -e.self_device_time_total)[:5]]}
+    log(f"  do_rule, {CRUSH_LANES} lanes: {out['do_rule_10k_ms']:.2f} ms "
+        f"({CRUSH_LANES / out['do_rule_10k_ms'] * 1e3:.0f} placements/s), "
+        f"{out['do_rule_10k_syncs']:.0f} host syncs, "
+        f"{out[f'trace_{CRUSH_LANES}']['device_ops']} device ops, idle "
+        f"share {out[f'trace_{CRUSH_LANES}']['idle_share']:.4f}")
+
+    # (b) 10,000,000 placements; the digest must be the JAX package's
+    nb = CRUSH_PLACEMENTS // CRUSH_SUB
+    s0 = vm.host_syncs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    digest, last = vm.scan_rule(1, w, n, 0, CRUSH_SUB, nb)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    if digest != CRUSH_DIGEST:
+        fail(f"scan_rule digest {digest} over {CRUSH_PLACEMENTS} "
+             f"placements != the JAX package's {CRUSH_DIGEST}")
+    filled = int((last.cpu().numpy() != 0x7FFFFFFF).sum(axis=1).min())
+    if filled != n:
+        fail(f"last scan batch: a lane filled only {filled} of {n} slots")
+    out.update({
+        "scan_placements": CRUSH_PLACEMENTS, "scan_sub": CRUSH_SUB,
+        "scan_s": scan_s, "placements_per_s": CRUSH_PLACEMENTS / scan_s,
+        "scan_syncs_per_batch": (vm.host_syncs - s0) / nb,
+        "digest": digest})
+    per_lane = gather_bytes_per_lane(vm, 1, n)
+    out["gather_bytes_per_lane"] = per_lane
+    out["gather_bound_ms"] = \
+        per_lane * CRUSH_PLACEMENTS / HBM_BYTES_PER_S * 1e3
+    # each input read once (the map tables, the reweights), each output
+    # written once (int32 rows); the seeds are made on the card
+    io = CRUSH_PLACEMENTS * n * 4 + sum(
+        t.numel() * t.element_size() for k, t in vars(vm).items()
+        if k.startswith("t_")) + w.nbytes
+    out["bound_ms"] = io / HBM_BYTES_PER_S * 1e3
+    log(f"  scan_rule: {CRUSH_PLACEMENTS} placements in {scan_s:.3f} s: "
+        f"{out['placements_per_s']:.1f} placements/s, digest {digest} "
+        f"(= CRUSH_10M.json), {out['scan_syncs_per_batch']:.1f} host syncs "
+        f"per {CRUSH_SUB}-lane batch; bound {out['bound_ms']:.3f} ms "
+        f"(bytes in and out), table gathers {per_lane} B/lane: "
+        f"{out['gather_bound_ms']:.1f} ms")
+
+    # (c) an OSDMap pool at pg_num 131072, one pgs_to_up
+    osdmap = OSDMap(crush, **entry_device(dev))
+    osdmap.add_pool(PGPool(1, pg_num=CRUSH_PG_NUM, size=n, min_size=K + 1,
+                           crush_rule=1, is_erasure=True))
+    if osdmap.device != vm.device:
+        fail(f"OSDMap on {osdmap.device}")
+    t0 = time.perf_counter()
+    up = osdmap.pgs_to_up(1)
+    up_s = time.perf_counter() - t0
+    pss = np.sort(rng.choice(CRUSH_PG_NUM, CRUSH_SAMPLE, replace=False))
+    want = np.concatenate([np.asarray(r, dtype=np.int32).reshape(-1, n)
+                           for r in on_host_workers(_scalar_up, [
+                               (osdmap.encode(), 1, sl)
+                               for sl in slices(pss)])])
+    bad = pss[(up[pss] != want).any(axis=1)]
+    if up.shape != (CRUSH_PG_NUM, n) or bad.size:
+        fail(f"pgs_to_up {up.shape} differs from pg_to_up_acting_osds at "
+             f"{bad.size} of {CRUSH_SAMPLE} sampled PGs")
+    out["pgs_to_up_s"] = up_s
+    log(f"  OSDMap pool pg_num {CRUSH_PG_NUM}: pgs_to_up in {up_s:.3f} s; "
+        f"{CRUSH_SAMPLE} sampled PGs equal pg_to_up_acting_osds")
+    return out
+
+
+# ------------------------------------------------------------- phase 7
+
+def cluster_path(torch, dev) -> dict:
+    """SimCluster's failure -> remap -> recovery path over ECBackend on
+    the card, at the BASELINE geometry; every read is held bit for bit
+    against the bytes written."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceph_tpu_torch.osd.cluster import SimCluster
+
+    c = SimCluster(n_osds=CLUSTER_OSDS, osds_per_host=CLUSTER_PER_HOST,
+                   pg_num=CLUSTER_PGS, profile=PROFILE,
+                   chunk_size=OBJECT_SIZE // K, **entry_device(dev))
+    be = c.pgs[0]
+    if c.device.type != dev.type or be.device != c.device \
+            or c.osdmap.device != c.device or be.coder.impl != "pallas" \
+            or c.pool_size != K + M:
+        fail(f"cluster on {c.device}, backend on {be.device} with impl "
+             f"{be.coder.impl}, pool size {c.pool_size}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    objs: dict = {}
+
+    def objects(tag: str, n: int) -> dict:
+        batch = torch.randint(0, 256, (n, OBJECT_SIZE), dtype=torch.uint8,
+                              device=dev, generator=gen).cpu().numpy()
+        return {f"{tag}{i:02d}": batch[i] for i in range(n)}
+
+    def verify(label: str) -> None:
+        t0 = time.perf_counter()
+        try:
+            ok = c.verify_all(objs)
+        except (AssertionError, KeyError, ValueError) as e:
+            fail(f"{label}: {e!r}")
+        log(f"  verify_all ({label}): {ok} objects bit-exact in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+    out = {}
+    t_write = 0.0
+    for g in range(CLUSTER_OBJECTS // BATCH):
+        group = objects(f"g{g}_", BATCH)
+        objs.update(group)
+        t0 = time.perf_counter()
+        c.write(group)
+        t_write += time.perf_counter() - t0
+    out["write_s"] = t_write
+    out["write_gbps"] = CLUSTER_OBJECTS * OBJECT_SIZE / t_write / 1e9
+    log(f"  write: {CLUSTER_OBJECTS} x {OBJECT_SIZE >> 20} MiB over "
+        f"{CLUSTER_PGS} PGs in {t_write:.3f} s ({out['write_gbps']:.3f} "
+        f"GB/s, host clock)")
+
+    # kill -> heartbeats go silent -> marked down; degraded reads
+    a = be.acting[0]
+    c.kill_osd(a)
+    c.tick(30)
+    h = c.health()
+    if c.osdmap.osd_up[a] or h["pgs_degraded"] == 0:
+        fail(f"osd.{a} killed: up in the map {bool(c.osdmap.osd_up[a])}, "
+             f"{h['pgs_degraded']} degraded PGs")
+    out["degraded_pgs"] = h["pgs_degraded"]
+    verify(f"osd.{a} down, {h['pgs_degraded']} PGs degraded")
+
+    # disk lost -> out after down_out_interval -> remap -> recovery
+    c.destroy_osd(a)
+    rec0 = c.perf.get("recovered_objects")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        c.tick(c.down_out_interval)
+        torch.cuda.synchronize()
+        tick_s = time.perf_counter() - t0
+    busy = device_busy_s(prof)
+    recovered = c.perf.get("recovered_objects") - rec0
+    holders = [ps for ps, pg in c.pgs.items() if a in pg.acting]
+    h = c.health()
+    if c.osdmap.osd_weight[a] != 0 or holders or recovered == 0 \
+            or h["pgs_degraded"]:
+        fail(f"after the out: weight {int(c.osdmap.osd_weight[a])}, PGs "
+             f"still on osd.{a}: {holders}, recovered {recovered}, "
+             f"{h['pgs_degraded']} degraded PGs")
+    out.update({"recovery_tick_s": tick_s, "recovered_objects": recovered,
+                "recovery_device_busy_s": busy,
+                "recovery_idle_share": 1 - busy / tick_s,
+                "recovery_objects_per_s": recovered / tick_s})
+    log(f"  out -> remap -> recover: tick of {c.down_out_interval:.0f} s "
+        f"(virtual) took {tick_s:.3f} s and recovered {recovered} objects "
+        f"({recovered / tick_s:.1f} objects/s); device busy {busy:.4f} s, "
+        f"idle share {1 - busy / tick_s:.4f} (torch.profiler)")
+    verify("after the out-recovery")
+
+    # kill, write while down, revive before out: PG-log replay
+    b = next(o for o in c.pgs[1].acting if o != a)
+    c.kill_osd(b)
+    c.tick(30)
+    if c.osdmap.osd_up[b]:
+        fail(f"osd.{b} killed but still up in the map")
+    more = objects("late", CLUSTER_MORE)
+    objs.update(more)
+    c.write(more)
+    rep0 = c.perf.get("log_replayed_objects")
+    t0 = time.perf_counter()
+    c.revive_osd(b)
+    c.tick(c.hb_interval)
+    out["replay_s"] = time.perf_counter() - t0
+    out["replayed_objects"] = c.perf.get("log_replayed_objects") - rep0
+    h = c.health()
+    if not c.osdmap.osd_up[b] or c.osdmap.osd_weight[b] == 0 \
+            or out["replayed_objects"] == 0 or h["pgs_degraded"]:
+        fail(f"osd.{b} revived: up {bool(c.osdmap.osd_up[b])}, weight "
+             f"{int(c.osdmap.osd_weight[b])}, replayed "
+             f"{out['replayed_objects']}, {h['pgs_degraded']} degraded")
+    log(f"  osd.{b} down for {CLUSTER_MORE} writes, revived: "
+        f"{out['replayed_objects']} objects replayed from the PG log in "
+        f"{out['replay_s']:.3f} s")
+    verify("after the log replay")
+    out["objects"] = len(objs)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -614,13 +955,27 @@ def main() -> None:
     backend = backend_path(torch, dev)
     launches5 = backend["gf_apply_launches"]
     log("backend " + json.dumps(backend))
+
+    log("phase 6: CRUSH placement at BASELINE config #5")
+    placement = placement_path(torch, dev)
+    log("placement " + json.dumps(placement))
+
+    log("phase 7: the cluster's failure -> remap -> recovery path")
+    G.apply_matrix_gf.launches = 0
+    cluster = cluster_path(torch, dev)
+    launches7 = G.apply_matrix_gf.launches
+    log(f"  gf_apply launches in phase 7: {launches7}")
+    if launches7 == 0:
+        fail("the cluster path never launched gf_apply")
+    log("cluster " + json.dumps(cluster))
     kernels = [{
         "name": "gf_apply",
         "route": "cuda",
         "source": "ceph_tpu_torch/ops/csrc/gf_apply.cu",
         "replaces": "ceph_tpu/ops/pallas_gf.py:103",
-        "launches": launches + launches5,
-        "launches_by_phase": {"3": launches, "5": launches5},
+        "launches": launches + launches5 + launches7,
+        "launches_by_phase": {"3": launches, "5": launches5,
+                              "7": launches7},
         "max_abs_err": gf_check["max_abs_err"],
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],

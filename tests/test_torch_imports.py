@@ -34,7 +34,12 @@ def test_port_has_the_slice_modules():
                  "utils.perf_counters", "utils.profiler",
                  "utils.flight_recorder", "utils.tracing", "utils.encoding",
                  "mgr.tracing", "osd.memstore", "osd.pglog", "osd.stripe",
-                 "osd.repairplan", "osd.pgbackend"):
+                 "osd.repairplan", "osd.pgbackend", "crush.hash",
+                 "crush.ln48", "crush.map", "crush.oracle", "crush.mapper",
+                 "osd.osdmap", "utils.log", "utils.config",
+                 "utils.op_tracker", "mon.monitor", "osd.peering",
+                 "osd.scheduler", "osd.objclass", "mgr.pg_autoscaler",
+                 "osd.cluster"):
         assert f"ceph_tpu_torch.{name}" in mods, name
 
 

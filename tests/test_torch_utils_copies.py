@@ -26,7 +26,11 @@ ROOT = Path(__file__).resolve().parents[1]
 COPIES = ["utils/perf_counters.py", "utils/profiler.py",
           "utils/flight_recorder.py", "utils/encoding.py",
           "mgr/tracing.py", "osd/memstore.py", "osd/pglog.py",
-          "osd/repairplan.py"]
+          "osd/repairplan.py", "crush/hash.py", "crush/ln48.py",
+          "crush/map.py", "crush/oracle.py", "utils/log.py",
+          "utils/config.py", "utils/op_tracker.py", "mon/monitor.py",
+          "osd/peering.py", "osd/scheduler.py", "osd/objclass.py",
+          "mgr/pg_autoscaler.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
