@@ -1,0 +1,332 @@
+"""LRC — layered locally-repairable erasure code, on torch tensors.
+
+Twin of ceph_tpu/ec/lrc.py (ref: src/erasure-code/lrc/
+ErasureCodeLrc.{h,cc} + ErasureCodePluginLrc.cc): a stack of sub-codes
+("layers") over one set of global chunk positions, so a single lost
+chunk is repaired from its small local group instead of k chunks — the
+repair-I/O-proportional-to-l property that is the whole point of LRC.
+
+Profile forms (both reference-compatible):
+
+  * low-level:  mapping="__DD__DD"
+                layers='[[ "_cDD_cDD", "" ], [ "cDDD____", "" ],
+                         [ "____cDDD", "" ]]'
+    Each position is one chunk. In `mapping`, 'D' marks the k data
+    positions. Each layer is an MDS sub-code over a subset of positions:
+    'D' = input to that layer, 'c' = parity written by that layer,
+    '_' = not in the layer. Layers encode in order, so a later layer can
+    consume an earlier layer's parity as input.
+
+  * k/m/l:      k=4 m=2 l=3
+    Expanded to mapping/layers exactly like the reference's parse_kml.
+
+Chunk ids are mapping POSITIONS (the reference's convention), so data
+lives at the 'D' positions, not at ids 0..k-1.
+
+Layer coders are built through the port's `factory` on the LRC coder's
+own device, and default to the RS plugin (plugin=tpu_rs) with its
+default impl, the hand GF kernel ("pallas"). The inherited
+`batch_decoder` linearizes a repair plan into one static GF matrix
+applied with the layers' impl, so a local repair is one kernel launch.
+A top-level `impl=` (mxu, bitlinear, logexp, pallas) reaches every
+layer and gives the same bytes.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+from typing import Mapping, Sequence
+
+import torch
+
+from ..ops.rs_kernels import DEFAULT_IMPL
+from .interface import ErasureCode, profile_from_string
+from .registry import register
+
+
+@dataclass
+class _Layer:
+    d_pos: tuple[int, ...]   # global positions of the layer's data, in order
+    c_pos: tuple[int, ...]   # global positions of the layer's parity
+    coder: ErasureCode
+
+    @property
+    def positions(self) -> frozenset[int]:
+        return frozenset(self.d_pos) | frozenset(self.c_pos)
+
+    @property
+    def k(self) -> int:
+        return len(self.d_pos)
+
+    def local_id(self, pos: int) -> int:
+        """Map a global position to this layer's coder chunk id."""
+        if pos in self.d_pos:
+            return self.d_pos.index(pos)
+        return self.k + self.c_pos.index(pos)
+
+
+def _expand_kml(k: int, m: int, l: int) -> tuple[str, list[list[str]]]:
+    """k/m/l -> (mapping, layers), the reference parse_kml expansion."""
+    if l < 2:
+        raise ValueError(f"lrc l={l}: local groups need at least 2 chunks")
+    if (k + m) % l:
+        raise ValueError(f"lrc k+m={k + m} must be a multiple of l={l}")
+    groups = (k + m) // l
+    n = k + m + groups
+    # slot layout: each group is [local parity, l data/global slots]
+    kind = ["D"] * n  # overwritten below for parity slots
+    for g in range(groups):
+        kind[g * (l + 1)] = "local"
+    free = [i for i in range(n) if kind[i] == "D"]
+    # distribute the m global parities round-robin across groups,
+    # earliest free slot of each group first
+    by_group: list[list[int]] = [[] for _ in range(groups)]
+    for pos in free:
+        by_group[pos // (l + 1)].append(pos)
+    taken: list[int] = []
+    for i in range(m):
+        g = i % groups
+        taken.append(by_group[g].pop(0))
+    for pos in taken:
+        kind[pos] = "global"
+    mapping = "".join("D" if c == "D" else "_" for c in kind)
+    global_layer = "".join(
+        {"D": "D", "global": "c", "local": "_"}[c] for c in kind)
+    layers = [[global_layer, ""]]
+    for g in range(groups):
+        lo, hi = g * (l + 1), (g + 1) * (l + 1)
+        chars = []
+        for i in range(n):
+            if not lo <= i < hi:
+                chars.append("_")
+            elif kind[i] == "local":
+                chars.append("c")
+            else:
+                chars.append("D")
+        layers.append(["".join(chars), ""])
+    return mapping, layers
+
+
+@register("lrc")
+@register("tpu_lrc")
+class Lrc(ErasureCode):
+    """Layered code; chunk ids are mapping positions."""
+
+    def init(self, profile: Mapping[str, str]) -> None:
+        from .registry import factory
+        if "mapping" in profile:
+            mapping = profile["mapping"]
+            raw_layers = profile.get("layers", "[]")
+            layer_specs = (json.loads(raw_layers)
+                           if isinstance(raw_layers, str) else raw_layers)
+            if not layer_specs:
+                raise ValueError("lrc: mapping given but no layers")
+        else:
+            k = int(profile.get("k", 4))
+            m = int(profile.get("m", 2))
+            l = int(profile.get("l", 3))
+            mapping, layer_specs = _expand_kml(k, m, l)
+        self.mapping = mapping
+        n = len(mapping)
+        self.k = mapping.count("D")
+        self.m = n - self.k
+        if self.k == 0:
+            raise ValueError("lrc mapping has no data positions")
+        self.data_positions = tuple(i for i, c in enumerate(mapping)
+                                    if c == "D")
+        self.layers: list[_Layer] = []
+        covered: set[int] = set(self.data_positions)
+        written: set[int] = set(self.data_positions)
+        for spec in layer_specs:
+            if len(spec) != 2:
+                raise ValueError(f"lrc layer spec must be "
+                                 f"[mapping, profile], got {spec!r}")
+            lmap, lprof_s = spec
+            if len(lmap) != n:
+                raise ValueError(f"lrc layer mapping {lmap!r} length "
+                                 f"{len(lmap)} != {n}")
+            d_pos = tuple(i for i, c in enumerate(lmap) if c == "D")
+            c_pos = tuple(i for i, c in enumerate(lmap) if c == "c")
+            bad = [c for c in lmap if c not in "Dc_"]
+            if bad:
+                raise ValueError(f"lrc layer mapping char {bad[0]!r} "
+                                 f"not in 'Dc_'")
+            if not d_pos or not c_pos:
+                raise ValueError(f"lrc layer {lmap!r} needs >=1 'D' and 'c'")
+            unwritten = [p for p in d_pos if p not in written]
+            if unwritten:
+                # a layer may only consume data positions or parities an
+                # EARLIER layer wrote; otherwise it encodes over
+                # still-zero buffers and decode silently diverges
+                raise ValueError(
+                    f"lrc layer {lmap!r} reads positions {unwritten} that "
+                    f"no earlier layer writes (layer order matters)")
+            lprof = profile_from_string(lprof_s) if isinstance(
+                lprof_s, str) and lprof_s else dict(lprof_s or {})
+            lprof.setdefault("plugin", "tpu_rs")
+            if "impl" in profile:
+                # the top-level impl choice reaches the layer coders
+                # (k/m/l expansions carry empty layer profiles, which
+                # otherwise pinned every layer to the plugin default)
+                lprof.setdefault("impl", profile["impl"])
+            lprof["k"] = str(len(d_pos))
+            lprof["m"] = str(len(c_pos))
+            self.layers.append(_Layer(d_pos, c_pos,
+                                      factory(lprof, device=self.device)))
+            covered |= set(c_pos)
+            written |= set(c_pos)
+        if covered != set(range(n)):
+            raise ValueError(
+                f"lrc: positions {sorted(set(range(n)) - covered)} are "
+                f"neither data nor written by any layer")
+        self._coding_positions = [i for i in range(n)
+                                  if i not in set(self.data_positions)]
+
+    # -- geometry overrides (chunk ids are positions) ----------------------
+
+    def get_chunk_count(self) -> int:
+        return len(self.mapping)
+
+    def get_chunk_mapping(self) -> list[int]:
+        return list(self.data_positions) + [
+            i for i, c in enumerate(self.mapping) if c != "D"]
+
+    # -- encode ------------------------------------------------------------
+
+    def encode(self, want_to_encode: Sequence[int],
+               data) -> dict[int, torch.Tensor]:
+        # base-class pad/split/encode_chunks flow, then relabel chunk ids
+        # from the dense (0..k-1 data, k.. coding) order to positions
+        n = self.get_chunk_count()
+        bad = [i for i in want_to_encode if not 0 <= i < n]
+        if bad:
+            raise ValueError(f"chunk ids must be in [0, {n}), "
+                             f"got {sorted(bad)}")
+        dense = super().encode(range(self.get_chunk_count()), data)
+        by_pos = {p: dense[i] for i, p in enumerate(self.data_positions)}
+        by_pos.update({p: dense[self.k + j]
+                       for j, p in enumerate(self._coding_positions)})
+        return {i: by_pos[i] for i in want_to_encode}
+
+    def encode_chunks(self, data) -> torch.Tensor:
+        """(B, k, L) data -> (B, m, L) parity, parity ordered by ascending
+        position (the non-D positions)."""
+        data = self.as_chunks(data)
+        b, k, cs = data.shape
+        n = self.get_chunk_count()
+        full = torch.zeros((b, n, cs), dtype=torch.uint8, device=self.device)
+        full[:, list(self.data_positions), :] = data
+        for layer in self.layers:
+            full[:, list(layer.c_pos), :] = layer.coder.encode_chunks(
+                full[:, list(layer.d_pos), :])
+        return full[:, self._coding_positions, :]
+
+    # -- repair planning ---------------------------------------------------
+
+    def _repair_plan(self, want: set[int], avail: set[int],
+                     costs: Mapping[int, int] | None = None):
+        """Sequence of (layer, missing_positions) repairs, preferring
+        small (local) layers so repair reads stay proportional to l.
+        `costs` biases which k chunks each repair reads (ref:
+        minimum_to_decode_with_cost). Returns (plan, reads, known) or
+        raises if unreconstructible."""
+        known = set(avail)
+        plan: list[tuple[_Layer, list[int]]] = []
+        reads: set[int] = set()
+        cost = (lambda p: costs.get(p, 0)) if costs else (lambda p: 0)
+        order = sorted(self.layers, key=lambda la: la.k)
+        while want - known:
+            progressed = False
+            for layer in order:
+                missing = [p for p in layer.positions if p not in known]
+                if not missing:
+                    continue
+                have = [p for p in layer.positions if p in known]
+                if len(have) < layer.k:
+                    continue
+                plan.append((layer, missing))
+                # the layer reads k of its known chunks; prefer ones some
+                # earlier repair already reads, then cheapest, then lowest
+                use = sorted(have, key=lambda p: (p not in reads,
+                                                  cost(p), p))[:layer.k]
+                reads |= {p for p in use if p in avail}
+                known |= set(missing)
+                progressed = True
+                break
+            if not progressed:
+                raise ValueError(
+                    f"lrc: cannot reconstruct {sorted(want - known)} "
+                    f"from {sorted(avail)}")
+        return plan, reads, known
+
+    def minimum_to_decode(self, want_to_read: Sequence[int],
+                          available: Sequence[int]) -> set[int]:
+        n = self.get_chunk_count()
+        want = set(want_to_read)
+        avail = set(available)
+        bad = [i for i in want | avail if not 0 <= i < n]
+        if bad:
+            raise ValueError(f"chunk ids must be in [0, {n}), "
+                             f"got {sorted(bad)}")
+        direct = want & avail
+        if want <= avail:
+            return direct
+        _, reads, _ = self._repair_plan(want - avail, avail)
+        return direct | reads
+
+    def minimum_to_decode_with_cost(self, want_to_read: Sequence[int],
+                                    available: Mapping[int, int]) -> set[int]:
+        """Layer-aware: the MDS default's 'k cheapest chunks' can be an
+        undecodable set for a layered code, so plan repairs structurally
+        and use cost only to break ties among a layer's inputs."""
+        n = self.get_chunk_count()
+        want = set(want_to_read)
+        avail = set(available)
+        bad = [i for i in want | avail if not 0 <= i < n]
+        if bad:
+            raise ValueError(f"chunk ids must be in [0, {n}), "
+                             f"got {sorted(bad)}")
+        direct = want & avail
+        if want <= avail:
+            return direct
+        _, reads, _ = self._repair_plan(want - avail, avail, costs=available)
+        return direct | reads
+
+    # -- device fast path ---------------------------------------------------
+
+    @property
+    def impl(self) -> str:
+        """Device lowering for the base class's derived batch_decoder
+        (the layered plan collapses to ONE static GF matrix via
+        ec/linearize — positionwise-linear, so the multi-stage local/
+        global walk composes into a single device launch; ref:
+        ErasureCodeLrc::minimum_to_decode layer walk)."""
+        return getattr(self.layers[0].coder, "impl", DEFAULT_IMPL) \
+            if self.layers else DEFAULT_IMPL
+
+    # -- decode ------------------------------------------------------------
+
+    def decode_chunks(self, want_to_read: Sequence[int],
+                      chunks: Mapping[int, object]
+                      ) -> dict[int, torch.Tensor]:
+        want = set(want_to_read)
+        known: dict[int, torch.Tensor] = {p: self.as_chunks(v)
+                                          for p, v in chunks.items()}
+        plan, _, _ = self._repair_plan(want - set(known), set(known))
+        for layer, missing in plan:
+            local_have = {layer.local_id(p): known[p]
+                          for p in layer.positions if p in known}
+            rec = layer.coder.decode(
+                [layer.local_id(p) for p in missing], local_have)
+            for p in missing:
+                known[p] = rec[layer.local_id(p)]
+        return {p: known[p] for p in want}
+
+    def decode_concat(self, chunks: Mapping[int, object],
+                      object_size: int | None = None) -> torch.Tensor:
+        rec = self.decode(list(self.data_positions), chunks)
+        out = torch.cat([rec[p] for p in self.data_positions], dim=-1)
+        if object_size is not None:
+            out = out[..., :object_size]
+        return out

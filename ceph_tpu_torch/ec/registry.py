@@ -32,16 +32,12 @@ def plugins() -> list[str]:
 
 
 def _ensure_loaded() -> None:
-    # "preload": import the bundled plugin modules so they self-register.
-    # lrc / clay / shec are not ported yet and are skipped while absent.
+    # "preload": import the bundled plugin modules so they self-register;
+    # a broken plugin surfaces as its import error
+    from . import clay as _clay  # noqa: F401
+    from . import lrc as _lrc  # noqa: F401
     from . import rs as _rs  # noqa: F401
-    for mod in ("lrc", "clay", "shec"):
-        name = f"{__package__}.{mod}"
-        try:
-            __import__(name)
-        except ModuleNotFoundError as e:
-            if e.name != name:  # plugin exists but is broken — surface it
-                raise
+    from . import shec as _shec  # noqa: F401
 
 
 def get_factory(name: str):

@@ -7,7 +7,9 @@ over GF(2^8) (poly 0x11D) for data (B, k, L) uint8, any L >= 0.
 
 - On a CUDA tensor it launches `csrc/gf_apply.cu` (sm_90a), built with
   nvcc on first use into `ceph_tpu_torch/_build/` and loaded with
-  ctypes. A build or launch failure raises; nothing falls back.
+  ctypes. A build or launch failure raises; nothing falls back. Any k
+  launches: the kernel stages the coefficient table `stage_rows(k, mt)`
+  input rows at a time within `SMEM_BUDGET` bytes of shared memory.
 - On a CPU tensor it runs `apply_matrix_plain`, the torch twin of the
   same SWAR function on int32 words (`pallas_gf._kernel_body`).
 
@@ -16,8 +18,8 @@ The design note and the bound on the H100 are in the CUDA source.
 
 from __future__ import annotations
 
+import collections
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -36,8 +38,27 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+# shared memory a block stages coefficient words in (the default
+# per-block limit, so no launch needs the opt-in attribute and up to 4
+# blocks share an SM)
+SMEM_BUDGET = 48 * 1024
+# bytes of device coefficient tables kept per process (one Clay k=10
+# m=4 d=13 encode table alone is 84 MB)
+COEF_CACHE_BYTES = 512 << 20
+
 _lib = None
 _lib_lock = threading.Lock()
+_coef_cache: collections.OrderedDict = collections.OrderedDict()
+_coef_bytes = 0
+_coef_lock = threading.Lock()
+
+
+def stage_rows(k: int, mt: int) -> int:
+    """Input rows whose (8, mt) uint32 coefficient words a block stages
+    at once: as many as fit SMEM_BUDGET bytes, at least 1, at most k
+    (the whole table then stays resident). `mt` is the row-group width,
+    min(m, 8); the kernel walks ceil(k / stage_rows(k, mt)) stages."""
+    return max(1, min(k, SMEM_BUDGET // (8 * mt * 4)))
 
 
 def coef_words(matrix: np.ndarray) -> np.ndarray:
@@ -83,18 +104,39 @@ def _load():
             fn = lib.gf_apply
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
-@functools.lru_cache(maxsize=256)
 def _device_coefs(matrix_bytes: bytes, m: int, k: int,
                   device: torch.device) -> torch.Tensor:
+    """The (m, k, 8) coefficient words of a matrix on `device`, kept in
+    a least-recently-used cache bounded by COEF_CACHE_BYTES (a table
+    larger than the bound is made for the call and not kept)."""
+    global _coef_bytes
+    key = (matrix_bytes, m, k, device)
+    with _coef_lock:
+        hit = _coef_cache.get(key)
+        if hit is not None:
+            _coef_cache.move_to_end(key)
+            return hit
     matrix = np.frombuffer(matrix_bytes, np.uint8).reshape(m, k)
-    words = coef_words(matrix).view(np.int32)
-    return torch.from_numpy(words.copy()).to(device)
+    words = torch.from_numpy(coef_words(matrix).view(np.int32).copy()
+                             ).to(device)
+    size = words.numel() * 4
+    if size > COEF_CACHE_BYTES:
+        return words
+    with _coef_lock:
+        if key not in _coef_cache:
+            _coef_cache[key] = words
+            _coef_bytes += size
+            while _coef_bytes > COEF_CACHE_BYTES:
+                _k, old = _coef_cache.popitem(last=False)
+                _coef_bytes -= old.numel() * 4
+    return words
 
 
 def _check(matrix: np.ndarray, data: torch.Tensor) -> None:
@@ -177,14 +219,15 @@ def apply_matrix_gf(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     vec = 4 if L % 16 == 0 and ptr % 16 == 0 else \
         1 if L % 4 == 0 and ptr % 4 == 0 else 0
     coefs = _device_coefs(matrix.tobytes(), m, k, data.device)
+    kc = stage_rows(k, min(m, 8))
     lib = _load()
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         rc = lib.gf_apply(data.data_ptr(), out.data_ptr(), coefs.data_ptr(),
-                          B, k, m, L, vec, stream)
+                          B, k, m, L, vec, kc, stream)
     if rc != 0:
         raise RuntimeError(f"gf_apply launch failed: cudaError {rc} "
-                           f"(B={B} k={k} m={m} L={L} vec={vec})")
+                           f"(B={B} k={k} m={m} L={L} vec={vec} kc={kc})")
     apply_matrix_gf.launches += 1
     return out
 

@@ -27,9 +27,15 @@ The device programs:
 CRCs leave the device as int64 tensors holding uint32 values and are
 turned into uint32 arrays before they reach HashInfo or a comparison.
 
+Recovery stages helper rows from local stores: full rows, or, for a
+Clay single-loss plan, only the sub-chunk ranges of the repair planes
+(`readv_ranges_host`: the source verifies each full row against its
+hinfo and CRCs the shipped bytes on the backend's device).
+
 Left for later slices: the native host-encode mode (the twin's SSE
-codec on the CPU backend), remote-store staging (readv frames and
-sub-chunk range reads) and TinStore.
+codec on the CPU backend), remote-store staging (`readv_submit` and
+`readv_ranges_submit` frames of the wire tier; a store that offers
+them is refused) and TinStore.
 """
 
 from __future__ import annotations
@@ -341,6 +347,66 @@ def _rows_crc32c(rows: np.ndarray, device) -> np.ndarray:
     """(B, L) byte rows -> (B,) raw crc32c (seed -1, the HashInfo
     convention) on `device`."""
     return PGBackend._batched_crcs(rows, resolve_device(device))
+
+
+def readv_ranges_host(store, cid: str, names: list[str], length: int,
+                      ranges, attr_key: str | None, device=None
+                      ) -> tuple[np.ndarray, np.ndarray | None,
+                                 list[int]]:
+    """Serve a ranged shard pull from a LOCAL store — the source half
+    of the sub-chunk read (ref: ErasureCodeClay's minimum_to_decode
+    sub-chunk ranges riding the ECSubRead).
+
+    Per object: verify the FULL stored row against its hinfo when
+    `attr_key` is given (rot detection stays at the source — the
+    receiver never sees the whole row, so the whole-row fold can't
+    cover it), slice the planned `ranges`, and crc32c the shipped
+    bytes (range-level integrity the receiver's fold verify consumes;
+    CRC32C is GF(2)-linear at any row length, so H range rows still
+    verify with ONE fold CRC). The CRCs run on `device` (None: the
+    CUDA device).
+
+    Returns (rows (B, rl) uint8, range CRCs (B,) uint32 | None,
+    indices of rows whose FULL shard failed its hinfo — their range
+    bytes ship anyway and the receiver plans around them)."""
+    ranges = [(int(o), int(ln)) for o, ln in ranges]
+    rl = sum(ln for _o, ln in ranges)
+    B = len(names)
+    rows = np.empty((B, rl), dtype=np.uint8)
+    bad: list[int] = []
+    if attr_key is not None:
+        full = np.empty((B, length), dtype=np.uint8)
+        for i, name in enumerate(names):
+            arr = store.read(cid, name)
+            if len(arr) != length:
+                # a stale/partial shard must fail LOUDLY — zero-
+                # filling would hand the decoder garbage
+                raise ValueError(
+                    f"readv_ranges: {name!r} is {len(arr)} bytes, "
+                    f"expected {length}")
+            full[i] = arr
+        crcs = _rows_crc32c(full, device)
+        for i, name in enumerate(names):
+            hinfo = HashInfo.from_bytes(
+                store.getattr(cid, name, attr_key))
+            if int(crcs[i]) != hinfo.get_chunk_hash(0):
+                bad.append(i)
+        at = 0
+        for off, ln in ranges:
+            rows[:, at:at + ln] = full[:, off:off + ln]
+            at += ln
+        return rows, _rows_crc32c(rows, device), bad
+    for i, name in enumerate(names):
+        at = 0
+        for off, ln in ranges:
+            got = store.read(cid, name, off, ln)
+            if len(got) != ln:
+                raise ValueError(
+                    f"readv_ranges: {name!r} range ({off},{ln}) "
+                    f"returned {len(got)} bytes")
+            rows[i, at:at + ln] = got
+            at += ln
+    return rows, None, bad
 
 
 class ECBackend(PGBackend):
@@ -2174,8 +2240,8 @@ class RecoveryRunner:
         device = proto.be.device
         helper = proto.helper
         H = len(helper)
-        # rl is the staged row width (full shard rows: no port codec
-        # plans sub-chunk ranges yet)
+        # rl is the staged row width: a full shard row, or the
+        # repair planes' ranges of a Clay single-loss plan
         rl, _ranges = proto.row_ranges(sl)
         # stage-time revalidation (see class docstring)
         live: list[tuple] = []   # (plan, name, version-at-stage)
@@ -2196,8 +2262,7 @@ class RecoveryRunner:
         exp = np.zeros((B, H), dtype=np.uint32)
         with span("ecbackend.recover.stage", counters=self.perf,
                   key="recover_stage_time"):
-            pre_bad = self._stage(live, sl, rl, stack, exp,
-                                  proto.verify)
+            pre_bad = self._stage(live, sl, stack, exp, proto.verify)
         wire = B * H * rl
         self.stats["helper_bytes_on_wire"] += wire
         self.perf.inc("recover_wire_bytes", wire)
@@ -2243,19 +2308,43 @@ class RecoveryRunner:
             segs[-1][2].append(name)
         return segs
 
-    def _stage(self, live, sl: int, rl: int, stack: np.ndarray,
-               exp: np.ndarray, verify: bool) -> dict[int, set[int]]:
-        """Fill (B, H, sl) helper rows + the expected fold inputs (the
-        stored hinfo CRCs) from local stores. Returns the source-flagged
-        rot map {batch row: {helper slot}}, always empty for full-row
-        local staging (the fold check finds rot after the launch)."""
+    def _stage(self, live, sl: int, stack: np.ndarray, exp: np.ndarray,
+               verify: bool) -> dict[int, set[int]]:
+        """Fill (B, H, rl) helper rows + the expected fold inputs from
+        local stores.
+
+        Full-row plans ship whole shards and `exp` carries the stored
+        hinfo CRCs (the whole-row fold). Range plans ship only the
+        planned sub-chunk ranges; the SOURCE verifies each full shard
+        against its hinfo (rot detection moves to the helper), `exp`
+        carries the shipped ranges' CRCs, and rows whose full shard
+        failed at the source come back in the returned
+        {batch row: {helper slot}} map — the decode proceeds but those
+        objects re-decode through the full-row fallback. Stores of the
+        wire tier (readv frames) are refused until it is ported."""
+        pre_bad: dict[int, set[int]] = {}
         for plan, r0, names in self._segments(live):
             nb = len(names)
-            if plan.row_ranges(sl)[1] is not None:
-                raise ValueError("sub-chunk range staging is not ported")
+            _rl, ranges = plan.row_ranges(sl)
             for hi, s in enumerate(plan.helper):
                 st = plan.be._store(s)
                 cid = shard_cid(plan.be.pg, s)
+                if getattr(st, "readv_ranges_submit", None) is not None \
+                        or getattr(st, "readv_submit", None) is not None:
+                    raise NotImplementedError(
+                        "remote-store staging (readv frames) is not "
+                        "ported: ROADMAP queue 1 item 8, the wire tier")
+                if ranges is not None:
+                    rows, crcs, bad = readv_ranges_host(
+                        st, cid, names, sl, ranges,
+                        HINFO_KEY if verify else None,
+                        device=plan.be.device)
+                    stack[r0:r0 + nb, hi, :] = rows
+                    if crcs is not None:
+                        exp[r0:r0 + nb, hi] = crcs
+                    for b in bad:
+                        pre_bad.setdefault(r0 + b, set()).add(s)
+                    continue
                 out = stack[r0:r0 + nb, hi, :]
                 rb = getattr(st, "read_batch", None)
                 if rb is not None:
@@ -2268,7 +2357,7 @@ class RecoveryRunner:
                         hb = st.getattr(cid, name, HINFO_KEY)
                         exp[r0 + bi, hi] = HashInfo.from_bytes(
                             hb).get_chunk_hash(0)
-        return {}
+        return pre_bad
 
     def _locate_bad_helpers(self, plan, name: str, bi: int,
                             exp: np.ndarray) -> set[int]:

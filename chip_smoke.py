@@ -42,7 +42,28 @@ Phases, each of which fails loudly (exit code 1, no result line):
      destroy it and tick past down_out_interval (out -> CRUSH remap ->
      recover_shards onto the new acting sets, timed and traced), then
      kill another, write 32 objects while it is down and revive it
-     before it goes out (the PG-log replay); every read bit-exact.
+     before it goes out (the PG-log replay); every read bit-exact;
+  8. BASELINE configs #3 and #4 through ECBackend and RecoveryRunner
+     (batch 32) at 256 seeded 4 MiB objects each: LRC k=8 m=4 l=4 (15
+     shards) loses data_positions[0] and rebuilds it from its local
+     group of 4 (lrc_local, 4 x 512 KiB per object on the wire), then
+     two shards of that group (lrc_multi), a degraded read and a clean
+     deep_scrub; Clay k=8 m=4 d=11 (64 sub-chunks of 8 KiB) loses shard
+     0 with one byte flipped inside a shipped repair plane of one helper
+     and one outside them in another, and rebuilds it from the repair
+     planes alone (range batches, 11/32 of k chunks on the wire, both
+     flips flagged at the source; traced for the device's idle share),
+     then shards 0 and 9 through decode_chunks (clay_full), a degraded
+     read and a clean deep_scrub; SHEC k=4 m=3 c=2 writes 32 objects,
+     rebuilds a shard (shec_cost) and reads degraded. Every rebuilt
+     shard and hinfo equals the write's, every read is bit-exact, and
+     gf_apply must have launched.
+Phase 2 holds gf_apply at the LRC and Clay matrices and at a matrix
+whose coefficient words (640 KiB) exceed a block's shared memory; phase
+4 holds it against its plain version at LRC's global layer and local
+repair, Clay's encode, repair and two-loss decode and SHEC's encode at
+the shapes of phase 8, and times it there beside its plain version and
+impl=mxu.
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
 
@@ -89,6 +110,12 @@ CLUSTER_PER_HOST = 4
 CLUSTER_PGS = 64
 CLUSTER_OBJECTS = 256
 CLUSTER_MORE = 32
+# phase 8: BASELINE configs #3 and #4 (and SHEC) through ECBackend
+LRC_PROFILE = "plugin=lrc k=8 m=4 l=4"
+CLAY_PROFILE = "plugin=clay k=8 m=4 d=11"
+SHEC_PROFILE = "plugin=shec k=4 m=3 c=2"
+N_CODEC = 256
+N_SHEC = 32
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 at 3.35 TB/s,
 # int8 tensor cores at 1,979 Tops/s.
@@ -158,15 +185,44 @@ def kernel_device_ms(fn, symbol: str, calls: int = 20) -> float:
     return sum(e.self_device_time_total for e in evs) / n / 1e3
 
 
-def gf_bound(B: int, k: int, m: int, L: int) -> tuple[float, str]:
+def gf_bound(B: int, k: int, m: int, L: int,
+             nnz: int | None = None) -> tuple[float, str]:
     """Least time (ms) the card could take for the GF apply: the larger
     of B*(k+m)*L bytes through HBM and the fewest operations known for
     the function, a (8m x 8k) bit-matrix product per byte column on the
-    int8 tensor cores (2*64*m*k ops per column, B*L columns)."""
+    int8 tensor cores: 2*64 ops per column for each of the matrix's `nnz`
+    non-zero coefficients (m*k when dense), B*L columns."""
+    nnz = m * k if nnz is None else nnz
     t_bytes = B * (k + m) * L / HBM_BYTES_PER_S
-    t_ops = 2 * 64 * m * k * B * L / INT8_OPS_PER_S
+    t_ops = 2 * 64 * nnz * B * L / INT8_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def clay_matrices(coder) -> dict:
+    """Config #4's GF matrices as the port's Clay coder builds them:
+    encode (256, 512), single-loss repair of shard 0 from its 11 helpers
+    (64, 176) and the two-loss decode of shards 0 and 9 (128, 640)."""
+    n = coder.get_chunk_count()
+    enc, _ = coder._affine_decode(tuple(range(coder.k, n)),
+                                  tuple(range(coder.k)))
+    rep, _ = coder.repair_plan_matrix(0, list(range(1, coder.d + 1)))
+    dec, _ = coder._affine_decode((0, 9), tuple(c for c in range(n)
+                                                if c not in (0, 9)))
+    return {"clay encode": enc, "clay repair": rep, "clay 2-loss decode": dec}
+
+
+def lrc_matrices(coder) -> dict:
+    """Config #3's GF matrices: the global layer (4, 8), a local layer
+    (1, 4) and the local repair of data_positions[0] linearized (1, 4)."""
+    from ceph_tpu_torch.ec.linearize import derive_repair_matrix
+    n = coder.get_chunk_count()
+    lost = coder.data_positions[0]
+    helpers = sorted(coder.minimum_to_decode(
+        [lost], [c for c in range(n) if c != lost]))
+    return {"lrc global layer": coder.layers[0].coder.matrix,
+            "lrc local layer": coder.layers[1].coder.matrix,
+            "lrc local repair": derive_repair_matrix(coder, [lost], helpers)}
 
 
 # ------------------------------------------------------------- phase 2
@@ -195,8 +251,8 @@ def check_gf_kernel(torch, dev) -> dict:
         ("m=1", rmat(1, 8), (4, 8, 4096), 0),
         ("k=16 m=4", rmat(4, 16), (3, 16, 8192), 0),
         ("m=12 (row groups)", rmat(12, 5), (2, 5, 1024), 0),
-        ("k=250 m=8 (shared memory > 48 KiB)", rmat(8, 250), (2, 250, 256),
-         0),
+        ("k=250 m=8 (coefficients > 48 KiB: 2 stages)", rmat(8, 250),
+         (2, 250, 256), 0),
         ("L=4", rs, (5, K, 4), 0),
         ("L=128", rs, (5, K, 128), 0),
         ("L=524292", rs, (2, K, 524292), 0),
@@ -210,6 +266,19 @@ def check_gf_kernel(torch, dev) -> dict:
         ("delta (ragged)", rs[:, [0, 2]], (BATCH, 2, 4093), 0),
         ("ragged, odd start", rs, (3, K, 4097), 1),
     ]
+    # config #3 and #4 matrices at B = 2 and a short sub-chunk, and one
+    # sparse matrix whose coefficient words (640 KiB) exceed the 227 KiB
+    # a block could hold: the kernel stages them in chunks of rows
+    from ceph_tpu_torch.ec.registry import factory
+    codec = {**lrc_matrices(factory(LRC_PROFILE, **entry_device(dev))),
+             **clay_matrices(factory(CLAY_PROFILE, **entry_device(dev)))}
+    for name, mat in codec.items():
+        cases.append((name, mat, (2, mat.shape[1], 512), 0))
+    wide = rmat(8, 2560) * (rng.random((8, 2560)) < 0.05)
+    cases += [("(8, 2560) sparse, 640 KiB of words", wide, (2, 2560, 4096),
+               0),
+              ("clay 2-loss decode, ragged", codec["clay 2-loss decode"],
+               (2, 640, 131), 0)]
     worst = 0
     for name, mat, (B, k, L), offset in cases:
         flat = torch.randint(0, 256, (B * k * L + offset,), dtype=torch.uint8,
@@ -338,6 +407,49 @@ def measure(torch, dev, ctx) -> dict:
     log(f"  gf_apply ragged ({BATCH},2,4093)->({BATCH},{M},4093): "
         f"{ms:.5f} ms on the device, {host_ms:.4f} ms per call with the "
         f"host's work (bound {bound:.6f} ms, {by}), plain {plain:.4f} ms")
+    # configs #3 and #4 at the backend's shapes: 32 objects of 4 MiB,
+    # LRC chunks of 512 KiB, Clay's 64 sub-chunks of 8 KiB; impl=mxu
+    # (float32 bit-plane matmul) beside
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.ops.rs_kernels import apply_matrix
+    mats = {**lrc_matrices(factory(LRC_PROFILE, **entry_device(dev))),
+            **clay_matrices(factory(CLAY_PROFILE, **entry_device(dev))),
+            "shec encode": factory(SHEC_PROFILE,
+                                   **entry_device(dev)).matrix}
+    for label, name, s_len in (("lrc_global", "lrc global layer", sl),
+                               ("lrc_repair", "lrc local repair", sl),
+                               ("clay_encode", "clay encode", sl // 64),
+                               ("clay_repair", "clay repair", sl // 64),
+                               ("clay_decode", "clay 2-loss decode",
+                                sl // 64),
+                               ("shec_encode", "shec encode",
+                                OBJECT_SIZE // 4)):
+        mat = mats[name]
+        m, k = mat.shape
+        x = torch.randint(0, 256, (BATCH, k, s_len), dtype=torch.uint8,
+                          device=dev, generator=gen)
+        # the kernel against its plain version at the backend's shape
+        # (Clay's encode and decode restage their coefficients)
+        if not torch.equal(G.apply_matrix_gf(mat, x),
+                           G.apply_matrix_plain(mat, x)):
+            fail(f"gf_apply disagrees with its plain version on {name} "
+                 f"at ({BATCH},{k},{s_len})")
+        ms = cuda_ms(lambda: G.apply_matrix_gf(mat, x), calls=10)
+        plain = cuda_ms(lambda: G.apply_matrix_plain(mat, x), 0, 3)
+        mxu = cuda_ms(lambda: apply_matrix(mat, x, "mxu"), 1, 3)
+        nnz = int((mat != 0).sum())
+        bound, by = gf_bound(BATCH, k, m, s_len, nnz)
+        rows = G.stage_rows(k, min(m, 8))
+        out[label] = {"ms": ms, "plain_ms": plain, "mxu_ms": mxu,
+                      "bound_ms": bound, "bound_by": by, "nnz": nnz,
+                      "stages": -(-k // rows), "max_abs_err": 0,
+                      "shape": [BATCH, k, m, s_len]}
+        log(f"  gf_apply {name} ({BATCH},{k},{s_len})->({BATCH},{m},{s_len})"
+            f": equal to plain; {ms:.4f} ms (bound {bound:.4f} ms, {by}; "
+            f"{nnz} non-zero coefficients, {-(-k // rows)} stages), plain "
+            f"{plain:.4f} ms, impl=mxu {mxu:.4f} ms")
+        del x
+    torch.cuda.empty_cache()
     in_bytes = BATCH * K * sl
     t_enc = cuda_ms(lambda: coder.encode_chunks(data))
     t_write = cuda_ms(lambda: ctx["write"](data))
@@ -916,6 +1028,213 @@ def cluster_path(torch, dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 8
+
+def codec_backend(torch, dev, profile: str, n_objects: int, seed: int):
+    """An ECBackend over MemStores for `profile` at 4 MiB objects, with
+    `n_objects` seeded objects written in groups of 32; returns the
+    backend, the objects and the host-clock write time."""
+    import numpy as np
+
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.osd.ecbackend import ECBackend, ShardSet
+
+    coder = factory(profile, **entry_device(dev))
+    n = coder.get_chunk_count()
+    be = ECBackend(profile, "1.0", list(range(n)), ShardSet(),
+                   chunk_size=coder.get_chunk_size(OBJECT_SIZE),
+                   **entry_device(dev))
+    if be.device.type != dev.type or be.coder.impl != "pallas" \
+            or be.sinfo.stripe_width != OBJECT_SIZE:
+        fail(f"{profile}: backend on {be.device}, impl {be.coder.impl}, "
+             f"stripe width {be.sinfo.stripe_width}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    objs: dict = {}
+    t_write = 0.0
+    for g in range(0, n_objects, BATCH):
+        batch = torch.randint(0, 256, (BATCH, OBJECT_SIZE), dtype=torch.uint8,
+                              device=dev, generator=gen).cpu().numpy()
+        group = {f"obj{g + i:04d}": batch[i] for i in range(BATCH)}
+        objs.update(group)
+        t0 = time.perf_counter()
+        be.write_objects(group)
+        t_write += time.perf_counter() - t0
+    gbps = n_objects * OBJECT_SIZE / t_write / 1e9
+    log(f"  {profile}: write_objects {n_objects} x {OBJECT_SIZE >> 20} MiB "
+        f"in {t_write:.3f} s: {gbps:.3f} GB/s (host clock)")
+    return be, objs, {"write_s": t_write, "write_gbps": gbps}
+
+
+def codec_recover(be, lost: list, family: str, profile=None) -> dict:
+    """Lose `lost`, rebuild them through plan_recovery + RecoveryRunner
+    (batch 32, the hinfo verify on) and hold every rebuilt shard and
+    hinfo against the lost store's; `profile` traces the run."""
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch.osd.ecbackend import (HINFO_KEY, RecoveryRunner,
+                                              shard_cid)
+    old = {s: be.cluster.stores.pop(be.acting[s]) for s in lost}
+    t0 = time.perf_counter()
+    plan = be.plan_recovery(lost, {s: 200 + s for s in lost})
+    runner = RecoveryRunner([plan], batch=BATCH)
+    if profile is not None:
+        with profile:
+            runner.run()
+            torch.cuda.synchronize()
+    else:
+        runner.run()
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rp = plan.repair
+    if rp.family != family:
+        fail(f"recovery of {lost}: plan family {rp.family}, want {family}")
+    for s in lost:
+        new_st, cid = be.cluster.osd(200 + s), shard_cid(be.pg, s)
+        for nm in old[s].list_objects(cid):
+            if not np.array_equal(new_st.read(cid, nm),
+                                  old[s].read(cid, nm)) \
+                    or new_st.getattr(cid, nm, HINFO_KEY) != \
+                    old[s].getattr(cid, nm, HINFO_KEY):
+                fail(f"rebuilt shard {s} of {nm} ({rp.family}) differs "
+                     f"from the write")
+    out = {"family": rp.family, "helpers": list(rp.helpers),
+           "counters": dict(plan.counters), "s": secs,
+           "objects_per_s": plan.counters["objects"] / secs,
+           "stats": {k: runner.stats[k] for k in (
+               "batches", "fused_batches", "generic_batches",
+               "range_batches", "helper_bytes_on_wire")}}
+    log(f"  recover {lost} ({rp.family}, helpers {list(rp.helpers)}): "
+        f"{plan.counters} in {secs:.3f} s: {out['objects_per_s']:.1f} "
+        f"objects/s (host clock); {out['stats']}; rebuilt shards and hinfo "
+        f"equal the write's")
+    return out
+
+
+def codec_read(be, objs: dict, dead: set, label: str) -> float:
+    import numpy as np
+    names = sorted(objs)
+    t0 = time.perf_counter()
+    for i in range(0, len(names), BATCH):
+        got = be.read_objects(names[i:i + BATCH], dead_osds=dead)
+        for nm in names[i:i + BATCH]:
+            if not np.array_equal(got[nm], objs[nm]):
+                fail(f"{label} of {nm} differs from the write")
+    secs = time.perf_counter() - t0
+    log(f"  {label}: {len(names)} objects bit-exact in {secs:.3f} s")
+    return secs
+
+
+def codec_scrub(be, label: str) -> None:
+    scrub = be.deep_scrub()
+    if scrub["inconsistent"] or scrub["checked"] != len(be.object_sizes) \
+            * be.n:
+        fail(f"{label}: deep_scrub not clean: {scrub}")
+    log(f"  {label}: deep_scrub checked {scrub['checked']} shards, clean")
+
+
+def flip(be, slot: int, name: str, off: int) -> None:
+    """Flip one stored byte of shard `slot` of `name` (bit rot)."""
+    import numpy as np
+
+    from ceph_tpu_torch.osd.ecbackend import Transaction, shard_cid
+    st = be.cluster.osd(be.acting[slot])
+    cid = shard_cid(be.pg, slot)
+    byte = st.read(cid, name, off, 1)
+    st.queue_transaction(Transaction().write(
+        cid, name, off, (byte ^ 0x5A).astype(np.uint8)))
+
+
+def codecs_path(torch, dev) -> dict:
+    """BASELINE configs #3 (LRC k=8 m=4 l=4) and #4 (Clay k=8 m=4 d=11)
+    and SHEC k=4 m=3 c=2 through ECBackend and RecoveryRunner on the
+    card; every read and rebuilt shard held against the write."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    # config #3: LRC, local repair from a group of 4
+    be, objs, w = codec_backend(torch, dev, LRC_PROFILE, N_CODEC, SEED + 8)
+    sl = be.sinfo.chunk_size
+    first = be.coder.data_positions[0]
+    one = codec_recover(be, [first], "lrc_local")
+    if len(one["helpers"]) != 4 or one["stats"]["helper_bytes_on_wire"] \
+            != N_CODEC * 4 * sl:
+        fail(f"LRC local repair read {one['helpers']}, "
+             f"{one['stats']['helper_bytes_on_wire']} bytes: want 4 "
+             f"helpers of {sl} bytes per object")
+    two = codec_recover(be, [first, first + 1], "lrc_multi")
+    dead = {be.acting[first], be.acting[be.n - 1]}
+    rd = codec_read(be, objs, dead, f"LRC degraded read ({sorted(dead)} "
+                    f"down)")
+    codec_scrub(be, "LRC")
+    out["lrc"] = {**w, "local": one, "multi": two, "degraded_read_s": rd,
+                  "helper_ratio": be.k / len(one["helpers"])}
+    del be, objs
+
+    # config #4: Clay, the sub-chunk range repair and the coupled decode
+    be, objs, w = codec_backend(torch, dev, CLAY_PROFILE, N_CODEC, SEED + 9)
+    sl, c = be.sinfo.chunk_size, be.coder
+    s = sl // c.sub_chunk_count
+    planes = c._repair_planes(0)
+    names = sorted(objs)
+    outside = next(z for z in range(c.sub_chunk_count) if z not in planes)
+    flip(be, 1, names[7], planes[3] * s + 11)       # inside a shipped plane
+    flip(be, 2, names[40], outside * s + 13)        # outside them
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    prof = profile(activities=acts)
+    one = codec_recover(be, [0], "clay_planes", profile=prof)
+    busy = device_busy_s(prof)
+    one["device_busy_s"] = busy
+    one["idle_share"] = 1 - busy / one["s"]
+    # the kernel's own share of the device time, and the largest entries
+    gf = [e for e in device_events(prof) if "gf_apply_kernel" in e.key]
+    one["gf_apply_device_s"] = sum(e.self_device_time_total
+                                   for e in gf) / 1e6
+    one["gf_apply_traced_launches"] = sum(e.count for e in gf)
+    one["top_device"] = [
+        [e.key[:60], e.self_device_time_total / 1e3, e.count]
+        for e in sorted(device_events(prof),
+                        key=lambda e: -e.self_device_time_total)[:6]]
+    if one["gf_apply_traced_launches"] == 0:
+        fail("the traced Clay repair shows no gf_apply_kernel launch")
+    wire = one["stats"]["helper_bytes_on_wire"]
+    if one["stats"]["range_batches"] < 1 \
+            or wire * 32 != 11 * N_CODEC * c.k * sl \
+            or one["counters"]["hinfo_failures"] != 2:
+        fail(f"Clay repair: {one['stats']}, {one['counters']}: want range "
+             f"batches, 11/32 of k chunks on the wire and both flipped "
+             f"helpers flagged")
+    log(f"  Clay repair: helper bytes / (objects x k x chunk) = "
+        f"{wire / (N_CODEC * c.k * sl)} (11/32 = {11 / 32}); both flipped "
+        f"bytes flagged at the source; device busy {busy:.4f} s, idle share "
+        f"{one['idle_share']:.4f} (torch.profiler); gf_apply_kernel "
+        f"{one['gf_apply_device_s']:.4f} s of device time in "
+        f"{one['gf_apply_traced_launches']} launches")
+    rep = be.repair_pg()
+    if rep["repaired"] != 2:
+        fail(f"repair_pg {rep}: want the two flipped shards repaired")
+    full = codec_recover(be, [0, 9], "clay_full")
+    if full["stats"]["generic_batches"] < 1:
+        fail(f"Clay two-loss recovery: {full['stats']}: want decode_chunks")
+    rd = codec_read(be, objs, {be.acting[0], be.acting[9]},
+                    "Clay degraded read (0, 9 down)")
+    codec_scrub(be, "Clay")
+    out["clay"] = {**w, "planes": one, "full": full, "degraded_read_s": rd,
+                   "repair_pg": rep,
+                   "helper_fraction": wire / (N_CODEC * c.k * sl)}
+    del be, objs
+
+    # SHEC: a cost-ranked shingle repair and a decode
+    be, objs, w = codec_backend(torch, dev, SHEC_PROFILE, N_SHEC, SEED + 10)
+    one = codec_recover(be, [1], "shec_cost")
+    rd = codec_read(be, objs, {be.acting[0], be.acting[2]},
+                    "SHEC degraded read (0, 2 down)")
+    codec_scrub(be, "SHEC")
+    out["shec"] = {**w, "recover": one, "degraded_read_s": rd}
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -968,14 +1287,26 @@ def main() -> None:
     if launches7 == 0:
         fail("the cluster path never launched gf_apply")
     log("cluster " + json.dumps(cluster))
+
+    log("phase 8: BASELINE configs #3 (LRC) and #4 (Clay), and SHEC, "
+        "through the PG backend")
+    G.apply_matrix_gf.launches = 0
+    t0 = time.perf_counter()
+    codecs = codecs_path(torch, dev)
+    launches8 = G.apply_matrix_gf.launches
+    log(f"  gf_apply launches in phase 8: {launches8} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if launches8 == 0:
+        fail("the codec paths never launched gf_apply")
+    log("codecs " + json.dumps(codecs))
     kernels = [{
         "name": "gf_apply",
         "route": "cuda",
         "source": "ceph_tpu_torch/ops/csrc/gf_apply.cu",
         "replaces": "ceph_tpu/ops/pallas_gf.py:103",
-        "launches": launches + launches5 + launches7,
+        "launches": launches + launches5 + launches7 + launches8,
         "launches_by_phase": {"3": launches, "5": launches5,
-                              "7": launches7},
+                              "7": launches7, "8": launches8},
         "max_abs_err": gf_check["max_abs_err"],
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -983,6 +1314,9 @@ def main() -> None:
         "shape": enc["shape"],
         "decode": times["decode"],
         "ragged": times["ragged"],
+        **{key: times[key] for key in ("lrc_global", "lrc_repair",
+                                       "clay_encode", "clay_repair",
+                                       "clay_decode", "shec_encode")},
     }]
     log("e2e " + json.dumps(times["e2e"]))
     log(json.dumps({"kernels": kernels}))

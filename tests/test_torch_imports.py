@@ -39,7 +39,7 @@ def test_port_has_the_slice_modules():
                  "osd.osdmap", "utils.log", "utils.config",
                  "utils.op_tracker", "mon.monitor", "osd.peering",
                  "osd.scheduler", "osd.objclass", "mgr.pg_autoscaler",
-                 "osd.cluster"):
+                 "osd.cluster", "ec.lrc", "ec.clay", "ec.shec"):
         assert f"ceph_tpu_torch.{name}" in mods, name
 
 
@@ -68,6 +68,13 @@ def test_factory_without_device_raises_when_cuda_is_absent(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ReedSolomon({"k": "4", "m": "2"})
     assert factory("k=8 m=3", device="cpu").device == torch.device("cpu")
+    for prof in ("plugin=lrc k=8 m=4 l=4", "plugin=clay k=8 m=4 d=11",
+                 "plugin=shec k=4 m=3 c=2"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            factory(prof)
+        coder = factory(prof, device="cpu")
+        assert coder.device == torch.device("cpu")
+        assert coder.impl == "pallas"
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

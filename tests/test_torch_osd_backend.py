@@ -418,3 +418,199 @@ def test_ragged_chunk_length_encode_matches_twin(L):
     twin = np.asarray(JR.factory(profile).encode_chunks(x))
     assert tuple(port.shape) == twin.shape == (2, 2, L)
     np.testing.assert_array_equal(port.numpy(), twin)
+
+
+# -- LRC and Clay profiles (BASELINE configs #3 and #4, small chunks) ---------
+
+# (id, profile, chunk_size, object size)
+CODEC_GEOMS = [("lrc-k4m2l3", "plugin=lrc k=4 m=2 l=3", 256, 900),
+               ("lrc-k8m4l4", "plugin=lrc k=8 m=4 l=4", 256, 3000),
+               ("clay-k4m2d5", "plugin=clay k=4 m=2 d=5", 1024, 9000),
+               ("clay-k8m4d11", "plugin=clay k=8 m=4 d=11", 8192, 60000)]
+PLANNER_KEYS = ("planner_local_plans", "planner_subchunk_plans",
+                "planner_cost_plans", "planner_full_plans",
+                "recover_wire_bytes", "recover_launches",
+                "recovered_objects", "hinfo_failures")
+
+
+@pytest.fixture(params=CODEC_GEOMS, ids=[g[0] for g in CODEC_GEOMS])
+def codec_geom(request):
+    return request.param
+
+
+def _runner_pair(jb, tb, lost, batch=4):
+    """One plan_recovery + RecoveryRunner on each side; returns what
+    both report (family, helpers, counters, the runner's stats)."""
+    out = []
+    for mod, be in ((J, jb), (T, tb)):
+        plan = be.plan_recovery(lost, {s: 100 + s for s in lost})
+        r = mod.RecoveryRunner([plan], batch=batch)
+        r.run()
+        out.append((plan.repair.family, plan.repair.helpers,
+                    dict(plan.counters),
+                    {k: r.stats[k] for k in (
+                        "batches", "fused_batches", "generic_batches",
+                        "range_batches", "helper_bytes_on_wire")}))
+    return out
+
+
+def _single_loss(be):
+    coder = be.coder
+    return coder.data_positions[0] if hasattr(coder, "data_positions") \
+        else 0
+
+
+def test_codec_write_read_and_scrub_match_twin(codec_geom):
+    _, profile, cs, size = codec_geom
+    jb, tb = _pair(profile, cs)
+    objs = _objects(4, size, seed=20)
+    _both(jb, tb, lambda be: be.write_objects(objs))
+    _same(jb, tb)
+    dead = {jb.acting[_single_loss(jb)], jb.acting[jb.n - 1]}
+    gj, gt = _both(jb, tb, lambda be: be.read_objects(list(objs),
+                                                      dead_osds=dead))
+    for name, data in objs.items():
+        np.testing.assert_array_equal(gt[name], data)
+        np.testing.assert_array_equal(gt[name], gj[name])
+    rj, rt = _both(jb, tb, lambda be: be.deep_scrub())
+    assert rt == rj and rt["inconsistent"] == []
+
+
+@pytest.mark.parametrize("loss", ["one", "two"])
+def test_codec_recovery_matches_twin(codec_geom, loss):
+    gid, profile, cs, size = codec_geom
+    jb, tb = _pair(profile, cs)
+    objs = _objects(5, size, seed=21)
+    _both(jb, tb, lambda be: be.write_objects(objs))
+    first = _single_loss(jb)
+    # "two": a second loss in the first one's local group (LRC), or a
+    # data and a parity shard (Clay, the chip run's 0 and 9 at k=8)
+    lost = [first] if loss == "one" else sorted(
+        {first, first + 1 if gid.startswith("lrc") else jb.n - 3})
+    for be in (jb, tb):
+        for s in lost:
+            be.cluster.stores.pop(be.acting[s])
+    rj, rt = _runner_pair(jb, tb, lost)
+    assert rt == rj
+    family, helpers, counters, stats = rt
+    assert counters["objects"] == 5 and counters["hinfo_failures"] == 0
+    want = {("lrc", "one"): "lrc_local", ("lrc", "two"): "lrc_multi",
+            ("clay", "one"): "clay_planes",
+            ("clay", "two"): "clay_full"}[(gid.split("-")[0], loss)]
+    assert family == want
+    sl = tb._shard_len(size)
+    if want == "lrc_local":
+        # a local group's l helpers, not k: 2.0x fewer at k=8 l=4
+        assert len(helpers) == int(gid[-1])
+        assert stats["helper_bytes_on_wire"] == 5 * len(helpers) * sl
+    if want == "clay_planes":
+        # d helpers ship beta of q^t planes: d/(k*q) of k full chunks
+        # (11/32 at k=8 m=4 d=11)
+        c = tb.coder
+        assert stats["range_batches"] >= 1
+        assert stats["helper_bytes_on_wire"] * c.k * c.q == \
+            5 * c.k * sl * c.d
+    for key in PLANNER_KEYS:
+        assert tb.perf.get(key) == jb.perf.get(key), key
+    _same(jb, tb)
+    got = tb.read_objects(list(objs))
+    for name, data in objs.items():
+        np.testing.assert_array_equal(got[name], data)
+    assert tb.deep_scrub()["inconsistent"] == []
+
+
+@pytest.mark.parametrize("where", ["inside", "outside"])
+def test_clay_range_recovery_flags_rot_at_the_source(where):
+    # one flipped byte in a helper, inside or outside the repair planes
+    # it ships: the source's full-row check flags it (pre_bad) either
+    # way, and the object is decoded around the rotten helper
+    profile, cs, size = "plugin=clay k=4 m=2 d=5", 1024, 9000
+    jb, tb = _pair(profile, cs)
+    objs = _objects(5, size, seed=22)
+    _both(jb, tb, lambda be: be.write_objects(objs))
+    planes = tb.coder._repair_planes(0)
+    s = tb._shard_len(size) // tb.coder.sub_chunk_count
+    z = planes[1] if where == "inside" else \
+        next(p for p in range(tb.coder.sub_chunk_count) if p not in planes)
+    for be in (jb, tb):
+        _corrupt(be, 2, "obj3", off=z * s + 7)
+        be.cluster.stores.pop(be.acting[0])
+    rj, rt = _runner_pair(jb, tb, [0])
+    assert rt == rj and rt[0] == "clay_planes"
+    assert rt[2]["hinfo_failures"] == 1 and rt[3]["range_batches"] >= 1
+    _same(jb, tb)
+    st = tb.cluster.osd(100)
+    full = tb.sinfo.object_to_shards(objs["obj3"][None])[0, 0]
+    np.testing.assert_array_equal(st.read(J.shard_cid(PG, 0), "obj3"), full)
+
+
+def test_readv_ranges_host_matches_twin():
+    profile, cs, size = "plugin=clay k=4 m=2 d=5", 1024, 9000
+    jb, tb = _pair(profile, cs)
+    objs = _objects(3, size, seed=23)
+    _both(jb, tb, lambda be: be.write_objects(objs))
+    for be in (jb, tb):
+        _corrupt(be, 1, "obj1", off=900)
+    sl = tb._shard_len(size)
+    ranges = ((0, 128), (512, 256), (1000, 24))
+    for attr in (J.HINFO_KEY, None):
+        got = [mod.readv_ranges_host(
+            be.cluster.osd(be.acting[1]), J.shard_cid(PG, 1),
+            sorted(objs), sl, ranges, attr, **kw)
+            for mod, be, kw in ((J, jb, {}), (T, tb, {"device": "cpu"}))]
+        (jr, jc, jbad), (tr, tc, tbad) = got
+        np.testing.assert_array_equal(tr, jr)
+        assert tbad == jbad == ([1] if attr else [])
+        if attr is None:
+            assert tc is None and jc is None
+        else:
+            np.testing.assert_array_equal(tc, jc)
+
+
+def test_range_staging_refuses_remote_stores():
+    # readv frames belong to the wire tier, which is not ported
+    tb = T.ECBackend("plugin=clay k=4 m=2 d=5", PG, list(range(6)),
+                     T.ShardSet(), chunk_size=1024, device="cpu")
+    tb.write_objects(_objects(2, 9000, seed=24))
+    tb.cluster.stores.pop(0)
+    st = tb.cluster.osd(tb.acting[1])
+    st.readv_ranges_submit = lambda *a: None
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        tb.recover_shards([0], replacement_osds={0: 100})
+
+
+@pytest.mark.parametrize("profile,cs,lost", [
+    ("plugin=lrc k=8 m=4 l=4", 256, [3]),
+    ("plugin=clay k=4 m=2 d=5", 1024, [0])], ids=["lrc", "clay"])
+def test_carried_state_codecs_twin_writes_port_recovers(profile, cs, lost):
+    n = TR.factory(profile, device="cpu").get_chunk_count()
+    jb = J.ECBackend(profile, PG, list(range(n)), J.ShardSet(),
+                     chunk_size=cs)
+    objs = _objects(4, 5000, seed=25)
+    jb.write_objects(objs)
+    for s in lost:
+        jb.cluster.stores.pop(s)
+    snap = {"stores": {}, "object_sizes": dict(jb.object_sizes),
+            "object_versions": dict(jb.object_versions),
+            "pg_log": jb.pg_log.encode(),
+            "shard_applied": dict(enumerate(jb.shard_applied)),
+            "rmw_seq": jb._rmw_seq}
+    for osd, st in jb.cluster.stores.items():
+        colls = snap["stores"].setdefault(osd, {})
+        for cid in st.list_collections():
+            for name in st.list_objects(cid):
+                colls.setdefault(cid, {})[name] = {
+                    "data": st.read(cid, name),
+                    "attrs": {J.HINFO_KEY: st.getattr(cid, name,
+                                                      J.HINFO_KEY)},
+                    "omap": {}}
+    tb = T.backend_from_snapshot(snap, profile, PG, list(range(n)),
+                                 chunk_size=cs, device="cpu")
+    _same(jb, tb)
+    cj, ct = _both(jb, tb, lambda be: be.recover_shards(
+        lost, replacement_osds={s: 40 + s for s in lost}))
+    assert ct == cj and ct["objects"] == 4
+    _same(jb, tb)
+    got = tb.read_objects(list(objs))
+    for name, data in objs.items():
+        np.testing.assert_array_equal(got[name], data)
