@@ -6,52 +6,87 @@
 // _build(...).apply through apply_matrix_pallas). It computes the same
 // SWAR bit-linear form on 32-bit words of 4 field bytes:
 //   c (x) x == XOR_{b: bit b of x set} (c * 2^b)
-//   v = (w >> b) & 0x01010101,  mask = (v << 8) - v   (per-byte 0x00/0xFF)
-//   acc[i] ^= mask & coef[i][j][b],  coef = (matrix[i,j] * 2^b) * 0x01010101
-// The TPU kernel baked the coefficients into the program and tiled the
-// rows into (64, 512) u32 slabs for the VPU. Here the coefficients are
-// data: the wrapper uploads them once per (matrix, device) as an
-// (m, k, 8) uint32 table, and each block stages the table of its row
-// group in shared memory as [j][b][i], so that one (j, b) step reads MT
-// broadcast words. The table is staged kc input rows at a time, kc
-// chosen by the wrapper to fit a fixed shared-memory budget (48 KiB),
-// so any k launches: Clay's matrices reach k = 2560 (640 KiB of words
-// for a row group at k=10 m=4 d=13). When kc >= k the table stays
-// resident for the whole row group; otherwise every tile of row places
-// walks the stages, with __syncthreads() around each restage, and the
-// accumulators stay in registers across stages. Each thread owns one
-// 16-byte word (uint4) of one object row position, loops over the k
-// input rows and 8 bits, and keeps MT accumulators per lane in
-// registers. Rows whose length is not a multiple
-// of 16 bytes (or misaligned pointers) take the 4-byte-word instance.
-// Rows whose length is not a multiple of 4 bytes (the RMW delta windows,
-// any length) do not start on a word boundary past row 0, so the same
-// instance then assembles each thread's 4-byte word from byte loads and
-// stores its bytes one by one; the last word of a row holds L % 4 bytes,
-// the rest of it is zero in and dropped out. The GF math is the same
-// SWAR word form in every instance, and no padded copy is made.
-// m > 8 runs in row groups of 8 inside the one launch (the input is read
-// once per group); the last group's missing rows have zero coefficients
-// and are not stored.
+//   mask_b = per-byte 0xFF where bit b of the byte is set
+//   acc[i] ^= mask_b & coef[i][j][b],  coef = (matrix[i,j] * 2^b) * 0x01010101
 //
-// Bound on the H100 (SXM, 700 W): the function moves B*(k+m)*L bytes
-// through HBM at 3.35 TB/s, which for RS k=8 m=3 over a batch of 32
-// 4 MiB objects is 55 us; that is the least time the card could take
-// (a bit-plane product on the int8 tensor cores would need only 26 us
-// of operations). This design does about 8*(3+m) 32-bit integer
-// operations per 4 input bytes: shift, and, and the mask (shift + sub,
-// or one multiply) per (j, b), then one AND+XOR per output row, which
-// one LOP3 can do. At 64 int32 results per clock per SM (132 SMs,
-// 1.98 GHz; 16.7 Tops/s) that is 96 us for the same batch, so the
-// design runs into the integer ALUs before the memory. It keeps all
-// temporaries in registers and touches HBM exactly once per byte;
-// fewer operations per byte (byte-permute nibble tables, or the
-// tensor-core bit-plane product) is later work.
+// The schedule. The TPU kernel skipped zero columns and zero
+// coefficients while it traced (pallas_gf.py:72-85). The wrapper
+// (ops/gf_kernel.py::compile_schedule) does the same once per matrix,
+// with numpy, and keeps the result on the device: the output rows are
+// cut into row groups of MT (1, 2, 4 or 8) rows; for each group, the
+// ascending input rows j with any non-zero coefficient in the group
+// ("entries", packed as j << 8 | an MT-bit mask of the group's non-zero
+// rows), and for each entry, for each row of its mask in ascending
+// order, the 8 words coef[i][j][0..7] (two 16-byte loads). A group's
+// entries are cut into chunks of at most 96 KiB of words. Clay k=8 m=4
+// d=11's matrices are 4.8-9.2 % non-zero: its encode walks 4,480
+// entries and 6,272 row words where a dense loop walks 16,384 of each.
+//
+// The grid. Blocks of 128 threads over (row group, tile of 128 places,
+// object), row group fastest, so the groups that read one tile of an
+// object's input run side by side and all but the first find it in the
+// 50 MB L2. The grid is cut to about 4 waves of 8 blocks per SM; a block
+// keeps its row group and walks further tiles, and stages a group of one
+// chunk only once. Each thread owns one place of a row (a 16-byte word,
+// uint4, where rows allow) and keeps MT accumulators per word in
+// registers. For each entry it makes the eight byte masks of its input
+// word once, 2 operations each (a shift that brings bit b of every byte
+// to bit 7, which the compiler issues as IMAD.SHL on the FMA pipe, then
+// PRMT's sign-replicate mode, which spreads bit 7 over the byte on the
+// integer pipe; 1 at b = 7), and does 8 AND+XORs (one LOP3 each) for
+// each row whose mask bit is set. That branch is uniform across the
+// block: every thread walks the same entry. The input words of the next
+// two entries are in flight during an entry's math; a block's group
+// record (three 16-byte loads) holds its first three entries and its
+// first chunk, so the first input loads wait on one load only.
+// Coefficient words come from shared memory (SMEM = true: a chunk staged
+// in cw * 4 bytes of dynamic shared memory, past 48 KiB by opt-in, a
+// barrier on each side) where the largest chunk passes 512 bytes (the
+// wrapper's stages(); Clay's, RS k=8 m=3's encode), else from global
+// memory through L1. The wrapper compiles the schedule, its device
+// arrays and the launch record the entry point reads (addresses, sizes,
+// the SM count) once per matrix, so a launch's host work is one ctypes
+// call of seven arguments.
+// Rows whose length is not a multiple of 16 bytes (or misaligned
+// pointers) take the 4-byte-word instance; rows whose length is not a
+// multiple of 4 (the RMW delta windows, any length) assemble each
+// thread's 4-byte word from byte loads and store its bytes one by one,
+// the last word holding L % 4 bytes. No padded copy is made.
+//
+// Bound and model on the H100 (SXM, 700 W): the function moves
+// B*(k+m)*L bytes through HBM at 3.35 TB/s (55 us for RS k=8 m=3 over
+// 32 objects of 4 MiB). Per 4 input bytes and row group the design
+// issues 8 PRMT and 7 IMAD.SHL per entry and 8 LOP3 per non-zero
+// coefficient. The integer pipe does 64 results per clock per SM (132
+// SMs, 1.98 GHz: 16.7 Tops/s): 32 per word at RS k=8 m=3, 64 us for the
+// same batch, above the bytes bound; per 16-byte place of Clay's encode
+// 4,480*32 + 6,272*32 = 344k, 0.34 ms for 32 objects of 64 sub-chunks of
+// 8 KiB. Measured on the card (PERF.md, chip_smoke.py phase 4), the RS
+// shapes run at about 0.098 ms of device time (1.9 TB/s), the dense
+// design's time, with neither the integer pipe (about 65 %) nor HBM
+// filled; Clay's shapes run 20-28x faster than the dense design.
+//
+// Decided from arithmetic: tensor cores. A dense int8 bit-plane product
+// of Clay's encode is 2*2048*4096*262144 = 4.4e12 operations, 2.2 ms at
+// 1,979 Tops/s, over six times the sparse model; at RS k=8 m=3 the
+// product is cheap but packing its 8*m int32 accumulators of each byte
+// column back into bytes takes shuffles across the fragment's threads
+// that cost more per byte than the 32 SWAR operations. Tried while the
+// design was made and dropped, none faster at the RS shapes: cp.async
+// staging of the input rows (a ring of 4 places a thread in shared
+// memory; slower at Clay's), two places a thread, 256-thread blocks,
+// the whole schedule in the kernel's parameters (the constant bank;
+// several times slower), group 0's record in the parameters (Clay 9 %
+// slower) and an entry's global coefficient loads all issued before its
+// math (RS decode 10 %, SHEC 25 % slower).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// Threads of a block; blocks the grid aims at per SM, and waves of them.
+constexpr int kThreads = 128, kBlocksPerSM = 8, kWaves = 4;
 
 // How one thread reads and writes its place in a row: NW 32-bit words
 // of field bytes. Rows are byte pointers; `p` counts places in a row.
@@ -102,116 +137,197 @@ template <> struct Words<0> {              // 4 bytes, rows of any length
   }
 };
 
-// Stage the coefficient words of input rows [j0, j0 + jn) of row group
-// g into sc as [j - j0][b][i]; rows past m get zero words. Every thread
-// of the block calls it (it holds two barriers).
-template <int MT>
-__device__ void stage(uint32_t* sc, const uint32_t* __restrict__ coefs,
-                      int g, int m, int k, int j0, int jn) {
-  __syncthreads();  // the block is done with the previous stage
-  const int n = jn * 8 * MT;
-  for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    const int row = g + t % MT;
-    const int jb = t / MT;  // (j - j0) * 8 + b
-    sc[t] = row < m ? coefs[((long long)row * k + j0) * 8 + jb] : 0u;
+// Bit 7 of each byte of x spread over the byte (PRMT sign-replicate).
+__device__ __forceinline__ uint32_t spread7(uint32_t x) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %1, 0xBA98;" : "=r"(r) : "r"(x));
+  return r;
+}
+
+// The compiled schedule (ops/gf_kernel.py::compile_schedule).
+struct Schedule {
+  const uint32_t* words;  // row words of entries, chunk by chunk
+  const int* ent;         // entry -> j << 8 | row mask
+  const int* cent;        // chunk -> first entry (chunks + 1)
+  const int* cwo;         // chunk -> first word (chunks + 1)
+  const int4* grp;        // group -> 3 int4: (first chunk, end chunk,
+                          // first entry, end entry), the first three
+                          // entries' ent, (first chunk's first word,
+                          // end word, end entry)
+  int groups;
+};
+
+// Masks of bits 0..7 of the NW words x, then acc[i] ^= mask_b & coef for
+// the rows i of `msk`, their 8 words (two uint4) each at c in turn.
+template <int MT, int NW, bool SMEM>
+__device__ __forceinline__ void entry(const uint32_t* x, int msk,
+                                      const uint4* c,
+                                      uint32_t (&acc)[MT][NW]) {
+  uint32_t mk[8][NW];
+#pragma unroll
+  for (int bit = 0; bit < 8; ++bit)
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      mk[bit][w] = spread7(x[w] << (7 - bit));
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    if (!((msk >> i) & 1)) continue;
+    const uint4 lo = SMEM ? c[0] : __ldg(c), hi = SMEM ? c[1] : __ldg(c + 1);
+    c += 2;
+    const uint32_t cb[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int bit = 0; bit < 8; ++bit)
+#pragma unroll
+      for (int w = 0; w < NW; ++w) acc[i][w] ^= mk[bit][w] & cb[bit];
   }
+}
+
+// Stage n4 uint4 of coefficient words in shared memory. Every thread of
+// the block calls it (it holds two barriers).
+__device__ __forceinline__ void stage(uint4* chunk4, const uint4* src,
+                                      int n4) {
+  __syncthreads();  // the block is done with the previous chunk
+  for (int t = threadIdx.x; t < n4; t += kThreads)
+    chunk4[t] = __ldg(src + t);
   __syncthreads();
 }
 
-// One block walks row groups, objects (grid y) and tiles of row places
-// (grid x, grid-stride). Loop bounds are uniform across the block, so
-// every thread reaches the barriers of each stage; threads past the end
-// of a row only skip the loads, the math and the stores.
-template <int MT, int VEC>
-__global__ void __launch_bounds__(256)
+// One block: row group g = blockIdx.x % groups, tiles of kThreads places
+// blockIdx.x / groups + i * gridDim.x / groups, objects
+// blockIdx.y + i * gridDim.y. All loop bounds and every
+// branch around a barrier are uniform across the block; threads past
+// the end of a row skip only the loads, the math and the stores.
+template <int MT, int VEC, bool SMEM>
+__global__ void __launch_bounds__(kThreads)
 gf_apply_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-                const uint32_t* __restrict__ coefs,  // (m, k, 8)
-                int B, int k, int m, long long L, int kc) {
+                const Schedule sc, int B, int k, int m, long long L) {
   typedef Words<VEC> W;
   constexpr int NW = W::NW;
-  extern __shared__ uint32_t sc[];  // [j - j0][b][i], kc * 8 * MT words
+  extern __shared__ uint4 chunk4[];  // one chunk of coefficient words
   const long long places = W::places(L);
-  const bool resident = kc >= k;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (int g = 0; g < m; g += MT) {
-    if (resident) stage<MT>(sc, coefs, g, m, k, 0, k);
+  const long long tiles = (places + kThreads - 1) / kThreads;
+  const uint4* words4 = reinterpret_cast<const uint4*>(sc.words);
+  // gridDim.x is a multiple of groups: a block keeps its row group over
+  // all its tiles, and stages a group of one chunk only once, after the
+  // first tile's input loads are on their way
+  const int g = (int)(blockIdx.x % (unsigned)sc.groups);
+  const int4 gr = __ldg(sc.grp + 3 * g);      // chunks, entries
+  const int4 gm = __ldg(sc.grp + 3 * g + 1);  // the first three entries
+  const int4 gw = __ldg(sc.grp + 3 * g + 2);  // first chunk: words, end
+  const int e1 = gr.w;
+  const bool once = SMEM && gr.y - gr.x == 1;
+  bool staged = false;
+  const int tile0 = (int)(blockIdx.x / (unsigned)sc.groups);
+  const int tile_step = (int)(gridDim.x / (unsigned)sc.groups);
+  for (long long t = tile0; t < tiles; t += tile_step) {
+    const long long p = t * kThreads + threadIdx.x;
+    const bool on = p < places;
     for (long long b = blockIdx.y; b < B; b += gridDim.y) {
-      const uint8_t* xb = in + b * k * L;
-      uint8_t* yb = out + (b * m + g) * L;
-      for (long long p0 = (long long)blockIdx.x * blockDim.x; p0 < places;
-           p0 += stride) {
-        const long long p = p0 + threadIdx.x;
-        const bool active = p < places;
-        uint32_t acc[MT][NW];
+      const uint8_t* obj = in + b * k * L;
+      uint32_t acc[MT][NW];
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int e = 0; e < NW; ++e) acc[i][e] = 0u;
-        for (int j0 = 0; j0 < k; j0 += kc) {
-          const int jn = k - j0 < kc ? k - j0 : kc;
-          if (!resident) stage<MT>(sc, coefs, g, m, k, j0, jn);
-          if (!active) continue;
-#pragma unroll 2
-          for (int j = 0; j < jn; ++j) {
-            uint32_t x[NW];
-            W::load(xb + (long long)(j0 + j) * L, p, L, x);
-            const uint32_t* cj = sc + j * 8 * MT;
-#pragma unroll
-            for (int bit = 0; bit < 8; ++bit) {
-              uint32_t c[MT];
-#pragma unroll
-              for (int i = 0; i < MT; ++i) c[i] = cj[bit * MT + i];
-#pragma unroll
-              for (int e = 0; e < NW; ++e) {
-                const uint32_t v = (x[e] >> bit) & 0x01010101u;
-                const uint32_t mask = (v << 8) - v;
-#pragma unroll
-                for (int i = 0; i < MT; ++i) acc[i][e] ^= mask & c[i];
-              }
-            }
-          }
-        }
-        if (!active) continue;
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-          if (g + i < m) W::store(yb + i * L, p, L, acc[i]);
+        for (int w = 0; w < NW; ++w) acc[i][w] = 0u;
+      // the input words of the next two entries are in flight during an
+      // entry's math (xa, xb), and the metadata of the one after them
+      // (entries e .. e + 2: m0, m1, m2)
+      int e = gr.z, m0 = gm.x, m1 = gm.y, m2 = gm.z;
+      uint32_t xa[NW], xb[NW];
+      if (on && e < e1) W::load(obj + (long long)(m0 >> 8) * L, p, L, xa);
+      if (on && e + 1 < e1)
+        W::load(obj + (long long)(m1 >> 8) * L, p, L, xb);
+      if (once && !staged) {
+        stage(chunk4, words4 + gw.x / 4, (gw.y - gw.x) / 4);
+        staged = true;
       }
+      for (int c = gr.x; c < gr.y; ++c) {
+        const bool first = c == gr.x;
+        const int eb = first ? gw.z : __ldg(sc.cent + c + 1);
+        const int w0 = first ? gw.x : __ldg(sc.cwo + c);
+        const uint4* cws = SMEM ? chunk4 : words4 + w0 / 4;
+        if (SMEM && !once)
+          stage(chunk4, words4 + w0 / 4,
+                ((first ? gw.y : __ldg(sc.cwo + c + 1)) - w0) / 4);
+        for (; e < eb; ++e) {
+          const int msk = m0 & 0xff;
+          m0 = m1;
+          m1 = m2;
+          if (e + 3 < e1) m2 = __ldg(sc.ent + e + 3);
+          uint32_t x[NW];
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            x[w] = xa[w];
+            xa[w] = xb[w];
+          }
+          if (on && e + 2 < e1)
+            W::load(obj + (long long)(m1 >> 8) * L, p, L, xb);
+          if (on) entry<MT, NW, SMEM>(x, msk, cws, acc);
+          cws += 2 * __popc(msk);
+        }
+      }
+      if (!on) continue;
+      uint8_t* yb = out + (b * m + (long long)g * MT) * L;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        if (g * MT + i < m) W::store(yb + i * L, p, L, acc[i]);
     }
   }
 }
 
-template <int MT, int VEC>
-cudaError_t launch(const void* in, void* out, const void* coefs, int B,
-                   int k, int m, long long L, int kc, cudaStream_t stream) {
+template <int MT, int VEC, bool SMEM>
+cudaError_t launch(const void* in, void* out, const Schedule& sc, int B,
+                   int k, int m, long long L, int cw, int sms,
+                   cudaStream_t stream) {
   const long long places = VEC == 4 ? L / 16 : VEC == 1 ? L / 4
                                                         : (L + 3) / 4;
-  const int threads = 256;
-  // kc * 8 * MT words fit the default 48 KiB a block may take (the
-  // wrapper's budget), so no launch needs the opt-in attribute
-  const int rows = kc < k ? kc : (k > 0 ? k : 1);
-  const size_t smem = (size_t)rows * 8 * MT * sizeof(uint32_t);
-  long long gx = (places + threads - 1) / threads;
-  if (gx > 0x7fffffffLL) gx = 0x7fffffffLL;
+  const size_t smem = SMEM ? (size_t)cw * sizeof(uint32_t) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        gf_apply_kernel<MT, VEC, SMEM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return rc;
+  }
+  // about kWaves waves of kBlocksPerSM blocks on every SM; a block walks
+  // the rest of its group's tiles
   const unsigned gy = B < 65535 ? (unsigned)B : 65535u;
-  gf_apply_kernel<MT, VEC><<<dim3((unsigned)gx, gy), threads, smem,
-                             stream>>>(
-      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
-      static_cast<const uint32_t*>(coefs), B, k, m, L, kc);
+  const long long tiles = (places + kThreads - 1) / kThreads;
+  const long long column = (long long)sc.groups * gy;  // blocks a tile
+  long long per = ((long long)sms * kBlocksPerSM * kWaves + column - 1) /
+                  column;
+  if (per > tiles) per = tiles;
+  if (per < 1) per = 1;
+  if (per > 0x7fffffffLL / sc.groups) per = 0x7fffffffLL / sc.groups;
+  const long long gx = sc.groups * per;
+  gf_apply_kernel<MT, VEC, SMEM><<<dim3((unsigned)gx, gy), kThreads, smem,
+                                   stream>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), sc, B, k,
+      m, L);
   return cudaGetLastError();
 }
 
-template <int VEC>
-cudaError_t dispatch(const void* in, void* out, const void* coefs, int B,
-                     int k, int m, long long L, int kc, cudaStream_t s) {
-  switch (m) {
-    case 1: return launch<1, VEC>(in, out, coefs, B, k, m, L, kc, s);
-    case 2: return launch<2, VEC>(in, out, coefs, B, k, m, L, kc, s);
-    case 3: return launch<3, VEC>(in, out, coefs, B, k, m, L, kc, s);
-    case 4: return launch<4, VEC>(in, out, coefs, B, k, m, L, kc, s);
-    case 5: return launch<5, VEC>(in, out, coefs, B, k, m, L, kc, s);
-    case 6: return launch<6, VEC>(in, out, coefs, B, k, m, L, kc, s);
-    case 7: return launch<7, VEC>(in, out, coefs, B, k, m, L, kc, s);
-    default: return launch<8, VEC>(in, out, coefs, B, k, m, L, kc, s);
+template <int VEC, bool SMEM>
+cudaError_t by_mt(int mt, const void* in, void* out, const Schedule& sc,
+                  int B, int k, int m, long long L, int cw, int sms,
+                  cudaStream_t s) {
+  switch (mt) {
+    case 1: return launch<1, VEC, SMEM>(in, out, sc, B, k, m, L, cw, sms, s);
+    case 2: return launch<2, VEC, SMEM>(in, out, sc, B, k, m, L, cw, sms, s);
+    case 4: return launch<4, VEC, SMEM>(in, out, sc, B, k, m, L, cw, sms, s);
+    case 8: return launch<8, VEC, SMEM>(in, out, sc, B, k, m, L, cw, sms, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool SMEM>
+cudaError_t by_vec(int vec, int mt, const void* in, void* out,
+                   const Schedule& sc, int B, int k, int m, long long L,
+                   int cw, int sms, cudaStream_t s) {
+  switch (vec) {
+    case 4: return by_mt<4, SMEM>(mt, in, out, sc, B, k, m, L, cw, sms, s);
+    case 1: return by_mt<1, SMEM>(mt, in, out, sc, B, k, m, L, cw, sms, s);
+    case 0: return by_mt<0, SMEM>(mt, in, out, sc, B, k, m, L, cw, sms, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -219,18 +335,29 @@ cudaError_t dispatch(const void* in, void* out, const void* coefs, int B,
 
 // vec = 4: L % 16 == 0 and 16-byte aligned pointers; vec = 1: L % 4 == 0
 // and 4-byte aligned pointers; vec = 0: any L (byte loads and stores).
-// kc: input rows whose coefficient words a block stages at once
-// (kc * 8 * min(m, 8) words of shared memory; kc >= k keeps the whole
-// table resident). Returns cudaGetLastError() after the launch (0 on
-// success).
-extern "C" int gf_apply(const void* in, void* out, const void* coefs, int B,
-                        int k, int m, long long L, int vec, int kc,
-                        void* stream) {
+// rec is the schedule's launch record, 12 int64 the wrapper keeps with
+// the compiled schedule on the device: the addresses of words, ent, cent
+// and cwo (chunks + 1 each) and grp (groups x 12), words 16-byte aligned;
+// then k and m of the matrix; mt, the rows per group (1, 2, 4 or 8);
+// groups = ceil(m / mt); cw, the largest chunk's words (a multiple of
+// 8); smem, nonzero to stage each chunk's words in cw words of shared
+// memory, else read from global memory; and the device's SM count.
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int gf_apply(const void* in, void* out, const long long* rec,
+                        int B, long long L, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || m <= 0 || L <= 0 || k < 0 || kc <= 0)
+  const int k = (int)rec[5], m = (int)rec[6], mt = (int)rec[7],
+            groups = (int)rec[8], cw = (int)rec[9], smem = (int)rec[10],
+            sms = (int)rec[11];
+  if (B <= 0 || m <= 0 || L <= 0 || k < 0 || groups <= 0 ||
+      (long long)groups * mt < m || cw < 0 || cw % 8 || sms <= 0)
     return (int)cudaErrorInvalidValue;
-  if (vec == 4) return (int)dispatch<4>(in, out, coefs, B, k, m, L, kc, s);
-  if (vec == 1) return (int)dispatch<1>(in, out, coefs, B, k, m, L, kc, s);
-  if (vec == 0) return (int)dispatch<0>(in, out, coefs, B, k, m, L, kc, s);
-  return (int)cudaErrorInvalidValue;
+  const Schedule sc = {reinterpret_cast<const uint32_t*>(rec[0]),
+                       reinterpret_cast<const int*>(rec[1]),
+                       reinterpret_cast<const int*>(rec[2]),
+                       reinterpret_cast<const int*>(rec[3]),
+                       reinterpret_cast<const int4*>(rec[4]), groups};
+  if (smem)
+    return (int)by_vec<true>(vec, mt, in, out, sc, B, k, m, L, cw, sms, s);
+  return (int)by_vec<false>(vec, mt, in, out, sc, B, k, m, L, cw, sms, s);
 }

@@ -16,10 +16,10 @@ Phases, each of which fails loudly (exit code 1, no result line):
      the write-time bytes and CRCs, the numpy oracle and the CRC
      reference, and check that the kernels were launched;
   4. time each kernel and its plain version with CUDA events around a
-     run of back-to-back calls (warm, median per call; the small ragged
-     instance by its device time in a torch.profiler trace), and the
-     end-to-end encode GB/s, decode GB/s and recovery objects/s one
-     call at a time, host overhead included;
+     run of back-to-back calls (warm, median per call), each kernel's
+     device time per launch in a torch.profiler trace and the host's
+     time per call, and the end-to-end encode GB/s, decode GB/s and
+     recovery objects/s one call at a time, host overhead included;
   5. drive the PG backend the way its users do, at the same width:
      ECBackend.write_objects of 256 seeded 4 MiB objects in groups of
      32, read_objects of all of them, a degraded read with shards 0
@@ -58,12 +58,26 @@ Phases, each of which fails loudly (exit code 1, no result line):
      rebuilds a shard (shec_cost) and reads degraded. Every rebuilt
      shard and hinfo equals the write's, every read is bit-exact, and
      gf_apply must have launched.
-Phase 2 holds gf_apply at the LRC and Clay matrices and at a matrix
-whose coefficient words (640 KiB) exceed a block's shared memory; phase
-4 holds it against its plain version at LRC's global layer and local
-repair, Clay's encode, repair and two-loss decode and SHEC's encode at
-the shapes of phase 8, and times it there beside its plain version and
-impl=mxu.
+Phase 2 holds gf_apply at the LRC and Clay matrices (Clay's also at
+the backend's (32, k, 8192)), a matrix with one non-zero coefficient,
+a row group with no entry, schedules whose shared-memory chunks pass 48
+KiB, and a two-chunk schedule whose blocks walk several tiles, and
+fails unless its cases reach the kernel's three ways to its
+coefficient words (global memory, shared memory staged once, chunk by
+chunk). Phase 4 holds it against its plain version and times it at
+every row of PERF.md's kernel table (RS k=8 m=3 encode and decode, the
+ragged RMW delta, LRC's global layer and local repair, Clay's encode,
+repair and two-loss decode and SHEC's encode at the shapes of phase
+8): ms per call, device ms per launch from a trace that must show
+every launch, host microseconds per call, beside its plain version and
+impl=mxu. Phases 3, 5, 7 and 8 print gf_apply's launches by (k, m, L,
+vec).
+
+    python3 chip_smoke.py --gf-times
+
+prints the card and one JSON object of phase 4's kernel rows (without
+the plain versions), and nothing else: copied into an older checkout,
+it times that checkout's gf_apply with the same method.
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
 
@@ -72,6 +86,7 @@ It imports nothing of JAX and nothing of ceph_tpu, and needs one card.
 
 from __future__ import annotations
 
+import collections
 import json
 import multiprocessing
 import os
@@ -167,22 +182,48 @@ def cuda_ms(fn, warm: int = 3, reps: int = 7, calls: int = 1) -> float:
 def kernel_device_ms(fn, symbol: str, calls: int = 20) -> float:
     """Milliseconds of device time per launch of the kernel whose
     symbol holds `symbol`, from a torch.profiler trace of `calls`
-    calls after warm ones; fails unless the trace shows every launch."""
+    calls after warm ones. The profiler runs one warm-up step of
+    `calls` calls with its tracing on but not kept, then records the
+    next `calls`. The trace must show every launch; one that does not
+    is logged with the count it shows and taken again, up to three
+    times, and then the phase fails."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in device_events(prof) if symbol in e.key]
-    n = sum(e.count for e in evs)
-    if n != calls:
-        fail(f"the trace shows {n} launches of {symbol}, not {calls}")
-    return sum(e.self_device_time_total for e in evs) / n / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1), acc_events=False) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        evs = [e for e in device_events(prof) if symbol in e.key]
+        n = sum(e.count for e in evs)
+        if n == calls:
+            return sum(e.self_device_time_total for e in evs) / n / 1e3
+        log(f"  the trace shows {n} launches of {symbol}, of {calls}: "
+            f"tracing again")
+    fail(f"three traces show {n} launches of {symbol}, of {calls}")
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Microseconds of the host's clock per call over `calls` calls in
+    a row, the device left to run behind (a warm call first, and a
+    synchronize before and after the run, outside the clock)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def gf_bound(B: int, k: int, m: int, L: int,
@@ -225,6 +266,23 @@ def lrc_matrices(coder) -> dict:
             "lrc local repair": derive_repair_matrix(coder, [lost], helpers)}
 
 
+def gf_counts(G) -> tuple:
+    """gf_apply's launch count and its counts by (k, m, L, vec)."""
+    f = G.apply_matrix_gf
+    return f.launches, collections.Counter(f.by_shape)
+
+
+def gf_set(G, counts=(0, ())) -> None:
+    """Set gf_apply's counts (to zero by default)."""
+    G.apply_matrix_gf.launches = counts[0]
+    G.apply_matrix_gf.by_shape = collections.Counter(dict(counts[1]))
+
+
+def by_shape(counter) -> dict:
+    """Launches by shape as JSON: {"k,m,L,vec": launches}."""
+    return {",".join(map(str, key)): n for key, n in sorted(counter.items())}
+
+
 # ------------------------------------------------------------- phase 2
 
 def check_gf_kernel(torch, dev) -> dict:
@@ -251,8 +309,7 @@ def check_gf_kernel(torch, dev) -> dict:
         ("m=1", rmat(1, 8), (4, 8, 4096), 0),
         ("k=16 m=4", rmat(4, 16), (3, 16, 8192), 0),
         ("m=12 (row groups)", rmat(12, 5), (2, 5, 1024), 0),
-        ("k=250 m=8 (coefficients > 48 KiB: 2 stages)", rmat(8, 250),
-         (2, 250, 256), 0),
+        ("k=250 m=8", rmat(8, 250), (2, 250, 256), 0),
         ("L=4", rs, (5, K, 4), 0),
         ("L=128", rs, (5, K, 128), 0),
         ("L=524292", rs, (2, K, 524292), 0),
@@ -266,34 +323,80 @@ def check_gf_kernel(torch, dev) -> dict:
         ("delta (ragged)", rs[:, [0, 2]], (BATCH, 2, 4093), 0),
         ("ragged, odd start", rs, (3, K, 4097), 1),
     ]
-    # config #3 and #4 matrices at B = 2 and a short sub-chunk, and one
-    # sparse matrix whose coefficient words (640 KiB) exceed the 227 KiB
-    # a block could hold: the kernel stages them in chunks of rows
+    # config #3 and #4 matrices at B = 2 and a short sub-chunk, a sparse
+    # (8, 2560), one non-zero coefficient, an empty row group, Clay's
+    # matrices at the backend's shapes
     from ceph_tpu_torch.ec.registry import factory
     codec = {**lrc_matrices(factory(LRC_PROFILE, **entry_device(dev))),
              **clay_matrices(factory(CLAY_PROFILE, **entry_device(dev)))}
     for name, mat in codec.items():
         cases.append((name, mat, (2, mat.shape[1], 512), 0))
     wide = rmat(8, 2560) * (rng.random((8, 2560)) < 0.05)
-    cases += [("(8, 2560) sparse, 640 KiB of words", wide, (2, 2560, 4096),
+    one = np.zeros((4, 8), np.uint8)
+    one[2, 5] = 7
+    half = rmat(16, 12)
+    half[8:] = 0                                    # row group 1 is empty
+    cases += [("(8, 2560) 5 % non-zero", wide, (2, 2560, 4096),
                0),
               ("clay 2-loss decode, ragged", codec["clay 2-loss decode"],
-               (2, 640, 131), 0)]
+               (2, 640, 131), 0),
+              ("one non-zero coefficient", one, (4, 8, 4096), 0),
+              ("a row group with no entry", half, (3, 12, 2048), 0)]
+    cases += [(f"{name}, backend shape", mat,
+               (BATCH, mat.shape[1], OBJECT_SIZE // K // 64), 0)
+              for name, mat in codec.items() if name.startswith("clay")]
+    # schedules whose chunks pass the default 48 KiB of shared memory: a
+    # dense (8, 250) (one chunk of 55.6 KB) and a dense (8, 2560) (640
+    # KiB of words in chunks of 96 KiB)
+    big = [("k=250 m=8 dense, one chunk > 48 KiB", rmat(8, 250) | 1,
+            (2, 250, 256), 0),
+           ("k=2560 m=8 dense, chunks of 96 KiB", rmat(8, 2560) | 1,
+            (2, 2560, 1024), 0)]
+    for name, mat, _, _ in big:
+        cw = G.compile_schedule(mat).chunk_words
+        if cw * 4 <= 48 * 1024:
+            fail(f"{name}: chunk of {cw * 4} bytes, want > 48 KiB")
+    # a dense (8, 385) has two chunks (384 entries of 64 words fill 96
+    # KiB); at these lengths the blocks of its one row group walk two or
+    # more tiles of places and stage both chunks again on each. The
+    # kernel's grid covers sms * 8 * 4 blocks of 128 places (vec 4: 16
+    # bytes a place; vec 1: 4 bytes), one row group here, per object
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    two = rmat(8, 385) | 1
+    per = -(-sms * 32 // 2)                         # tiles a block at B=2
+    cases += big + [
+        ("k=385 m=8 dense, two chunks, several tiles a block (vec 1)", two,
+         (2, 385, (2 * per + 1) * 512 - 12), 0),
+        ("k=385 m=8 dense, two chunks, several tiles a block (vec 4)", two,
+         (1, 385, (sms * 32 + 64) * 2048), 0)]
     worst = 0
+    seen = set()
     for name, mat, (B, k, L), offset in cases:
         flat = torch.randint(0, 256, (B * k * L + offset,), dtype=torch.uint8,
                              device=dev)
         data = flat[offset:].view(B, k, L)
-        got = G.apply_matrix_gf(mat, data)
         want = G.apply_matrix_plain(mat, data)
+        got = G.apply_matrix_gf(mat, data)
         torch.cuda.synchronize()
-        err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max()) \
-            if got.numel() else 0
+        err = int((got.to(torch.int16) - want.to(torch.int16)).abs()
+                  .max()) if got.numel() else 0
         worst = max(worst, err)
-        log(f"  gf_apply {name}: ({B},{k},{L})->({B},{mat.shape[0]},{L}) "
-            f"max_abs_err={err}")
         if err or not torch.equal(got, want):
             fail(f"gf_apply disagrees with its plain version on {name}")
+        sched = G.compile_schedule(mat)
+        chunks = int(np.diff(sched.gch).max(initial=0))
+        seen.add((G.stages(sched), chunks > 1))
+        log(f"  gf_apply {name}: ({B},{k},{L})->({B},{mat.shape[0]},{L}) "
+            f"max_abs_err={err} ({len(sched.ent)} entries in "
+            f"{sched.groups} groups of {sched.mt}, up to {chunks} chunks "
+            f"of up to {sched.chunk_words * 4} B, read from "
+            f"{'shared' if G.stages(sched) else 'global'} memory)")
+        del flat, data, want, got
+    torch.cuda.empty_cache()
+    # the kernel's three ways to its coefficient words: global memory,
+    # shared memory staged once, shared memory chunk by chunk
+    if not {(False, False), (True, False), (True, True)} <= seen:
+        fail(f"phase 2 missed a way to the coefficient words: {seen}")
     return {"max_abs_err": worst}
 
 
@@ -366,90 +469,111 @@ def main_path(torch, dev) -> dict:
 
 # ------------------------------------------------------------- phase 4
 
-def measure(torch, dev, ctx) -> dict:
-    from ceph_tpu_torch.csum.kernels import crc32c_blocks
+def gf_table(torch, dev, plain: bool = True) -> dict:
+    """gf_apply at every row of PERF.md's kernel table: RS k=8 m=3
+    encode and two-loss decode over 32 objects of 4 MiB, the ragged RMW
+    delta of phase 5 (and the same launch with an all-zero matrix), and
+    configs #3 and #4 and SHEC at the backend's shapes. For each: ms per
+    call (CUDA events around 20 back-to-back calls), the kernel's own
+    device time per launch (a trace), the host's microseconds per call;
+    with `plain`, the plain version's and impl=mxu's ms beside. Uses only
+    gf_kernel's public surface, so that `--gf-times` can time an older
+    checkout of the package as well. Returns the rows and their
+    matrices."""
+    import numpy as np
+
+    from ceph_tpu_torch.ec.registry import factory
     from ceph_tpu_torch.gf.numpy_ref import decode_matrix
     from ceph_tpu_torch.ops import gf_kernel as G
+    from ceph_tpu_torch.ops.rs_kernels import apply_matrix
 
-    coder, sl = ctx["coder"], ctx["sl"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
-    data = torch.randint(0, 256, (BATCH, K, sl), dtype=torch.uint8,
-                         device=dev, generator=gen)
-    D = decode_matrix(coder.matrix, list(LOST), K, ctx["survivors"])
-    out = {}
-    for label, mat in (("encode", coder.matrix), ("decode", D)):
-        m = mat.shape[0]
-        ms = cuda_ms(lambda: G.apply_matrix_gf(mat, data), calls=20)
-        plain = cuda_ms(lambda: G.apply_matrix_plain(mat, data), 1, 5,
-                        calls=3)
-        bound, by = gf_bound(BATCH, K, m, sl)
-        out[label] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-                      "bound_by": by, "shape": [BATCH, K, m, sl]}
-        log(f"  gf_apply {label} ({BATCH},{K},{sl})->({BATCH},{m},{sl}): "
-            f"{ms:.4f} ms (bound {bound:.4f} ms, {by}), plain "
-            f"{plain:.4f} ms")
-    # the ragged instance at the RMW delta shape of phase 5: at this
-    # size the wrapper's host work outlasts the kernel, so its time is
-    # the kernel's own device time from a trace; host_ms is per call
-    # with the host's work included
-    dmat = coder.matrix[:, [0, 2]]
-    ddata = data[:, :2, :4093].contiguous()
-    ms = kernel_device_ms(lambda: G.apply_matrix_gf(dmat, ddata),
-                          "gf_apply_kernel")
-    host_ms = cuda_ms(lambda: G.apply_matrix_gf(dmat, ddata), calls=20)
-    plain = cuda_ms(lambda: G.apply_matrix_plain(dmat, ddata), 1, 5,
-                    calls=3)
-    bound, by = gf_bound(BATCH, 2, M, 4093)
-    out["ragged"] = {"ms": ms, "host_ms": host_ms, "plain_ms": plain,
-                     "bound_ms": bound, "bound_by": by,
-                     "shape": [BATCH, 2, M, 4093]}
-    log(f"  gf_apply ragged ({BATCH},2,4093)->({BATCH},{M},4093): "
-        f"{ms:.5f} ms on the device, {host_ms:.4f} ms per call with the "
-        f"host's work (bound {bound:.6f} ms, {by}), plain {plain:.4f} ms")
-    # configs #3 and #4 at the backend's shapes: 32 objects of 4 MiB,
-    # LRC chunks of 512 KiB, Clay's 64 sub-chunks of 8 KiB; impl=mxu
-    # (float32 bit-plane matmul) beside
-    from ceph_tpu_torch.ec.registry import factory
-    from ceph_tpu_torch.ops.rs_kernels import apply_matrix
-    mats = {**lrc_matrices(factory(LRC_PROFILE, **entry_device(dev))),
+    rs = factory(PROFILE, **entry_device(dev)).matrix
+    sl = OBJECT_SIZE // K
+    survivors = [s for s in range(K + M) if s not in LOST][:K]
+    mats = {"encode": rs,
+            "decode": decode_matrix(rs, list(LOST), K, survivors),
+            "ragged": rs[:, [0, 2]],
+            **lrc_matrices(factory(LRC_PROFILE, **entry_device(dev))),
             **clay_matrices(factory(CLAY_PROFILE, **entry_device(dev))),
-            "shec encode": factory(SHEC_PROFILE,
-                                   **entry_device(dev)).matrix}
-    for label, name, s_len in (("lrc_global", "lrc global layer", sl),
-                               ("lrc_repair", "lrc local repair", sl),
-                               ("clay_encode", "clay encode", sl // 64),
-                               ("clay_repair", "clay repair", sl // 64),
-                               ("clay_decode", "clay 2-loss decode",
-                                sl // 64),
-                               ("shec_encode", "shec encode",
-                                OBJECT_SIZE // 4)):
+            "shec encode": factory(SHEC_PROFILE, **entry_device(dev)).matrix}
+    # (row, matrix, length); configs #3 and #4 at the backend's shapes:
+    # LRC chunks of 512 KiB, Clay's 64 sub-chunks of 8 KiB
+    rows = (("encode", "encode", sl), ("decode", "decode", sl),
+            ("ragged", "ragged", 4093),
+            ("lrc_global", "lrc global layer", sl),
+            ("lrc_repair", "lrc local repair", sl),
+            ("clay_encode", "clay encode", sl // 64),
+            ("clay_repair", "clay repair", sl // 64),
+            ("clay_decode", "clay 2-loss decode", sl // 64),
+            ("shec_encode", "shec encode", OBJECT_SIZE // 4))
+    out = {}
+    for label, name, s_len in rows:
         mat = mats[name]
         m, k = mat.shape
         x = torch.randint(0, 256, (BATCH, k, s_len), dtype=torch.uint8,
                           device=dev, generator=gen)
-        # the kernel against its plain version at the backend's shape
-        # (Clay's encode and decode restage their coefficients)
+        # the kernel against its plain version at this shape
         if not torch.equal(G.apply_matrix_gf(mat, x),
                            G.apply_matrix_plain(mat, x)):
             fail(f"gf_apply disagrees with its plain version on {name} "
                  f"at ({BATCH},{k},{s_len})")
-        ms = cuda_ms(lambda: G.apply_matrix_gf(mat, x), calls=10)
-        plain = cuda_ms(lambda: G.apply_matrix_plain(mat, x), 0, 3)
-        mxu = cuda_ms(lambda: apply_matrix(mat, x, "mxu"), 1, 3)
+        ms = cuda_ms(lambda: G.apply_matrix_gf(mat, x), calls=20)
+        dev_ms = kernel_device_ms(lambda: G.apply_matrix_gf(mat, x),
+                                  "gf_apply_kernel")
+        us = host_us(lambda: G.apply_matrix_gf(mat, x))
         nnz = int((mat != 0).sum())
         bound, by = gf_bound(BATCH, k, m, s_len, nnz)
-        rows = G.stage_rows(k, min(m, 8))
-        out[label] = {"ms": ms, "plain_ms": plain, "mxu_ms": mxu,
-                      "bound_ms": bound, "bound_by": by, "nnz": nnz,
-                      "stages": -(-k // rows), "max_abs_err": 0,
-                      "shape": [BATCH, k, m, s_len]}
+        row = {"ms": ms, "device_ms": dev_ms, "host_us": us,
+               "bound_ms": bound, "bound_by": by, "nnz": nnz,
+               "max_abs_err": 0, "shape": [BATCH, k, m, s_len]}
+        extra = ""
+        if label == "ragged":
+            # the same launch with a schedule of no entry: the kernel's
+            # fixed path at this shape
+            zero = np.zeros_like(mat)
+            row["empty_schedule_ms"] = kernel_device_ms(
+                lambda: G.apply_matrix_gf(zero, x), "gf_apply_kernel")
+            extra = (f"; with an all-zero matrix "
+                     f"{row['empty_schedule_ms']:.5f} ms on the device")
+        if plain:
+            row["plain_ms"] = cuda_ms(lambda: G.apply_matrix_plain(mat, x),
+                                      0 if k > 100 else 1, 3 if k > 100
+                                      else 5, calls=1 if k > 100 else 3)
+            extra += f"; plain {row['plain_ms']:.4f} ms"
+            if label.startswith(("lrc", "clay", "shec")):
+                row["mxu_ms"] = cuda_ms(lambda: apply_matrix(mat, x, "mxu"),
+                                        1, 3)
+                extra += f", impl=mxu {row['mxu_ms']:.4f} ms"
+        out[label] = row
         log(f"  gf_apply {name} ({BATCH},{k},{s_len})->({BATCH},{m},{s_len})"
-            f": equal to plain; {ms:.4f} ms (bound {bound:.4f} ms, {by}; "
-            f"{nnz} non-zero coefficients, {-(-k // rows)} stages), plain "
-            f"{plain:.4f} ms, impl=mxu {mxu:.4f} ms")
+            f": equal to plain; {ms:.5f} ms per call, {dev_ms:.5f} ms on "
+            f"the device, {us:.1f} us of host time per call (bound "
+            f"{bound:.6f} ms, {by}; {nnz} non-zero coefficients){extra}")
         del x
     torch.cuda.empty_cache()
+    return out, {label: mats[name] for label, name, _ in rows}
+
+
+def measure(torch, dev, ctx) -> dict:
+    import numpy as np
+
+    from ceph_tpu_torch.csum.kernels import crc32c_blocks
+    from ceph_tpu_torch.ops import gf_kernel as G
+
+    coder, sl = ctx["coder"], ctx["sl"]
+    out, mats = gf_table(torch, dev)
+    for label, mat in mats.items():
+        sched = G.compile_schedule(mat)
+        out[label]["entries"] = len(sched.ent)
+        out[label]["chunks"] = int(np.diff(sched.gch).max(initial=0))
+        out[label]["coefficients_from"] = \
+            "shared" if G.stages(sched) else "global"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    data = torch.randint(0, 256, (BATCH, K, sl), dtype=torch.uint8,
+                         device=dev, generator=gen)
     in_bytes = BATCH * K * sl
     t_enc = cuda_ms(lambda: coder.encode_chunks(data))
     t_write = cuda_ms(lambda: ctx["write"](data))
@@ -543,14 +667,19 @@ def backend_path(torch, dev) -> dict:
 
     # 5. lose shards 0 and 9; RecoveryRunner rebuilds them
     lost = list(LOST)
+    from ceph_tpu_torch.ops import gf_kernel as G
     old = {s: be.cluster.stores.pop(be.acting[s]) for s in lost}
+    before = gf_counts(G)[1]
     t0 = time.perf_counter()
     counters = be.recover_shards(lost, replacement_osds={
         s: 100 + s for s in lost}, batch=BATCH)
     t_rec = time.perf_counter() - t0
     rec_rate = counters["objects"] / t_rec
+    rec_shapes = gf_counts(G)[1]
+    rec_shapes.subtract(before)
     log(f"  recover_shards({lost}, batch={BATCH}): {counters} in "
-        f"{t_rec:.3f} s: {rec_rate:.1f} objects/s (host clock)")
+        f"{t_rec:.3f} s: {rec_rate:.1f} objects/s (host clock); gf_apply "
+        f"launches by (k,m,L,vec): {json.dumps(by_shape(+rec_shapes))}")
     if counters["objects"] != N_BACKEND or counters["hinfo_failures"] < 1:
         fail(f"recovery counters {counters}: want {N_BACKEND} objects "
              f"and the flipped helper flagged")
@@ -603,10 +732,10 @@ def backend_path(torch, dev) -> dict:
         fail("RMW wave: objects read back differ from the overlay")
     full = _fused_write_fn(be.coder.matrix.tobytes(), M, K, be.coder.impl,
                            sl, BATCH, be.device)
-    ref0 = G.apply_matrix_gf.launches     # the reference is not the path
+    ref0 = gf_counts(G)                   # the reference is not the path
     parity, crcs = full(torch.from_numpy(
         be.sinfo.object_to_shards(data)).to(dev))
-    G.apply_matrix_gf.launches = ref0
+    gf_set(G, ref0)
     parity, crcs = parity.cpu().numpy(), crcs.cpu().numpy()
     for bi, nm in enumerate(wave):
         for s in range(n):
@@ -631,12 +760,14 @@ def backend_path(torch, dev) -> dict:
         "encode_time", "recover_stage_time", "recover_launch_time",
         "recover_fetch_time", "recover_writeback_time")}
     log(f"  span totals (s): " + json.dumps(spans))
-    launches = G.apply_matrix_gf.launches
-    log(f"  gf_apply launches in phase 5: {launches}")
+    launches, shapes = gf_counts(G)
+    log(f"  gf_apply launches in phase 5: {launches}, by (k,m,L,vec): "
+        f"{json.dumps(by_shape(shapes))}")
     if launches == 0:
         fail("the backend path never launched gf_apply")
     trace = trace_backend(torch, be, gen)
     return {"gf_apply_launches": launches,
+            "gf_apply_by_shape": by_shape(shapes),
             "write_gbps": write_gbps, "write_s": t_write,
             "recovery_objects_per_s": rec_rate, "recover_s": t_rec,
             "rmw_wave_s": t_rmw, "spans_s": spans,
@@ -1075,7 +1206,9 @@ def codec_recover(be, lost: list, family: str, profile=None) -> dict:
 
     from ceph_tpu_torch.osd.ecbackend import (HINFO_KEY, RecoveryRunner,
                                               shard_cid)
+    from ceph_tpu_torch.ops import gf_kernel as G
     old = {s: be.cluster.stores.pop(be.acting[s]) for s in lost}
+    before = gf_counts(G)[1]
     t0 = time.perf_counter()
     plan = be.plan_recovery(lost, {s: 200 + s for s in lost})
     runner = RecoveryRunner([plan], batch=BATCH)
@@ -1087,6 +1220,8 @@ def codec_recover(be, lost: list, family: str, profile=None) -> dict:
         runner.run()
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    shapes = gf_counts(G)[1]
+    shapes.subtract(before)
     rp = plan.repair
     if rp.family != family:
         fail(f"recovery of {lost}: plan family {rp.family}, want {family}")
@@ -1102,13 +1237,15 @@ def codec_recover(be, lost: list, family: str, profile=None) -> dict:
     out = {"family": rp.family, "helpers": list(rp.helpers),
            "counters": dict(plan.counters), "s": secs,
            "objects_per_s": plan.counters["objects"] / secs,
+           "gf_apply_by_shape": by_shape(+shapes),
            "stats": {k: runner.stats[k] for k in (
                "batches", "fused_batches", "generic_batches",
                "range_batches", "helper_bytes_on_wire")}}
     log(f"  recover {lost} ({rp.family}, helpers {list(rp.helpers)}): "
         f"{plan.counters} in {secs:.3f} s: {out['objects_per_s']:.1f} "
-        f"objects/s (host clock); {out['stats']}; rebuilt shards and hinfo "
-        f"equal the write's")
+        f"objects/s (host clock); {out['stats']}; gf_apply launches by "
+        f"(k,m,L,vec) {json.dumps(out['gf_apply_by_shape'])}; rebuilt shards "
+        f"and hinfo equal the write's")
     return out
 
 
@@ -1253,15 +1390,23 @@ def main() -> None:
     t0 = time.perf_counter()
     G.build()
     log(f"phase 1: built gf_apply.cu in {time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] == ["--gf-times"]:
+        rows, _ = gf_table(torch, dev, plain=False)
+        log(card_line())
+        log(json.dumps({"gf_times": rows}))
+        return
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}: none, or --gf-times")
 
     log("phase 2: kernels against their plain versions")
     gf_check = check_gf_kernel(torch, dev)
 
     log("phase 3: main path")
-    G.apply_matrix_gf.launches = 0
+    gf_set(G)
     ctx = main_path(torch, dev)
-    launches = G.apply_matrix_gf.launches
-    log(f"  gf_apply launches on the main path: {launches}")
+    launches, shapes3 = gf_counts(G)
+    log(f"  gf_apply launches on the main path: {launches}, by "
+        f"(k,m,L,vec): {json.dumps(by_shape(shapes3))}")
     if launches == 0:
         fail("the main path never launched gf_apply")
 
@@ -1270,7 +1415,7 @@ def main() -> None:
     enc = times["encode"]
 
     log("phase 5: the PG backend path")
-    G.apply_matrix_gf.launches = 0
+    gf_set(G)
     backend = backend_path(torch, dev)
     launches5 = backend["gf_apply_launches"]
     log("backend " + json.dumps(backend))
@@ -1280,22 +1425,24 @@ def main() -> None:
     log("placement " + json.dumps(placement))
 
     log("phase 7: the cluster's failure -> remap -> recovery path")
-    G.apply_matrix_gf.launches = 0
+    gf_set(G)
     cluster = cluster_path(torch, dev)
-    launches7 = G.apply_matrix_gf.launches
-    log(f"  gf_apply launches in phase 7: {launches7}")
+    launches7, shapes7 = gf_counts(G)
+    log(f"  gf_apply launches in phase 7: {launches7}, by (k,m,L,vec): "
+        f"{json.dumps(by_shape(shapes7))}")
     if launches7 == 0:
         fail("the cluster path never launched gf_apply")
     log("cluster " + json.dumps(cluster))
 
     log("phase 8: BASELINE configs #3 (LRC) and #4 (Clay), and SHEC, "
         "through the PG backend")
-    G.apply_matrix_gf.launches = 0
+    gf_set(G)
     t0 = time.perf_counter()
     codecs = codecs_path(torch, dev)
-    launches8 = G.apply_matrix_gf.launches
+    launches8, shapes8 = gf_counts(G)
     log(f"  gf_apply launches in phase 8: {launches8} "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"({time.perf_counter() - t0:.1f} s), by (k,m,L,vec): "
+        f"{json.dumps(by_shape(shapes8))}")
     if launches8 == 0:
         fail("the codec paths never launched gf_apply")
     log("codecs " + json.dumps(codecs))
@@ -1307,6 +1454,10 @@ def main() -> None:
         "launches": launches + launches5 + launches7 + launches8,
         "launches_by_phase": {"3": launches, "5": launches5,
                               "7": launches7, "8": launches8},
+        "launches_by_shape": {"3": by_shape(shapes3),
+                              "5": backend["gf_apply_by_shape"],
+                              "7": by_shape(shapes7),
+                              "8": by_shape(shapes8)},
         "max_abs_err": gf_check["max_abs_err"],
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -1319,6 +1470,7 @@ def main() -> None:
                                        "clay_decode", "shec_encode")},
     }]
     log("e2e " + json.dumps(times["e2e"]))
+    log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -179,41 +179,13 @@ def test_make_encoder_rejects_unknown_impl():
         TK.make_encoder(reed_sol_van_matrix(4, 2), "cuda")
 
 
-# -- any-k staging of the coefficient table (gf_apply.cu's j loop) ----------
-
-@pytest.mark.parametrize("k,mt,rows", [
-    (8, 3, 8),              # RS k=8 m=3: resident
-    (176, 8, 176),          # Clay repair: resident
-    (512, 8, 192),          # Clay encode: 3 stages
-    (640, 8, 192),          # Clay 2-loss decode: 4 stages
-    (2560, 8, 192),         # Clay k=10 m=4 d=13 encode: 14 stages
-    (5, 2, 5),
-    (0, 1, 1),
-])
-def test_stage_plan_of_the_coefficient_table(k, mt, rows):
-    assert G.stage_rows(k, mt) == rows
-
-
-@pytest.mark.parametrize("k,m", [(8, 3), (250, 8), (512, 256), (640, 128),
-                                 (2560, 1024), (1, 1), (9, 12)])
-def test_stage_plan_covers_k_within_the_budget(k, m):
-    # ceil(k / rows) stages of rows input rows cover k, each stage's
-    # words inside the budget; Clay k=10 m=4 d=13's (1024, 2560) encode
-    # included
-    mt = min(m, 8)
-    rows = G.stage_rows(k, mt)
-    stages = -(-k // rows)
-    assert 1 <= rows <= k and rows * 8 * mt * 4 <= G.SMEM_BUDGET
-    assert (stages - 1) * rows < k <= stages * rows
-    assert stages == 1 or rows * 8 * mt * 4 + 8 * mt * 4 > G.SMEM_BUDGET
-
+# -- any-k: Clay's shapes (the kernel's schedule: test_torch_gf_schedule.py)
 
 @pytest.mark.parametrize("m,k,nz", [(64, 176, 22), (256, 512, 12),
                                     (128, 640, 24)])
 def test_plain_version_at_a_clay_repair_shape_matches_jax_twin(m, k, nz):
     # config #4's single-loss repair (64, 176), encode (256, 512) and
-    # two-loss decode (128, 640) shapes at their densities; the last
-    # two span more than one stage of the kernel's coefficient table
+    # two-loss decode (128, 640) shapes at their densities
     mat = _rand((m, k), seed=k) * (_rand((m, k), seed=k + 1) < nz)
     data = _rand((2, k, 128), seed=k + 2)
     want = R.encode_ref(mat, data) if k > 176 else \
@@ -223,19 +195,27 @@ def test_plain_version_at_a_clay_repair_shape_matches_jax_twin(m, k, nz):
 
 
 def test_coefficient_cache_is_bounded_by_bytes(monkeypatch):
-    monkeypatch.setattr(G, "COEF_CACHE_BYTES", 3 * 8 * 8 * 4 * 4)
+    cpu = torch.device("cpu")
+    mats = [_rand((8, 4), seed=s) | 1 for s in range(4)]  # no zero
+    size = G.compile_schedule(mats[0]).nbytes             # 1,104 bytes
+    monkeypatch.setattr(G, "COEF_CACHE_BYTES", 3 * size)
     monkeypatch.setattr(G, "_coef_cache", type(G._coef_cache)())
     monkeypatch.setattr(G, "_coef_bytes", 0)
-    cpu = torch.device("cpu")
-    mats = [_rand((8, 4), seed=s) for s in range(4)]     # 1 KiB of words
-    tabs = [G._device_coefs(mt.tobytes(), 8, 4, cpu) for mt in mats]
-    for mt, t in zip(mats, tabs):
-        np.testing.assert_array_equal(t.numpy().view(np.uint32),
-                                      G.coef_words(mt))
-    # three tables fit: the least recently used one went
-    assert G._coef_bytes == 3 * 1024 and len(G._coef_cache) == 3
+    got = [G._device_schedule(mt.tobytes(), 8, 4, cpu) for mt in mats]
+    for mt, (sched, flat, rec) in zip(mats, got):
+        # the device copy holds the group record, then the words of each
+        # input row's 8 output rows in turn; the launch record addresses
+        # its parts and holds the kernel's sizes
+        assert flat.numel() * 4 == sched.nbytes
+        assert rec[4] == flat.data_ptr() and rec[0] == rec[4] + 48
+        assert rec[5:11].tolist() == [4, 8, 8, 1, 256, 1]  # 1 KiB staged
+        words = flat.numpy()[12:12 + len(sched.words)].view(np.uint32)
+        np.testing.assert_array_equal(
+            words, G.coef_words(mt).transpose(1, 0, 2).reshape(-1))
+    # three schedules fit: the least recently used one went
+    assert G._coef_bytes == 3 * size and len(G._coef_cache) == 3
     assert (mats[0].tobytes(), 8, 4, cpu) not in G._coef_cache
-    assert G._device_coefs(mats[3].tobytes(), 8, 4, cpu) is tabs[3]
-    big = _rand((8, 16), seed=9)                         # 4 KiB > bound
-    G._device_coefs(big.tobytes(), 8, 16, cpu)
-    assert G._coef_bytes == 3 * 1024 and len(G._coef_cache) == 3
+    assert G._device_schedule(mats[3].tobytes(), 8, 4, cpu) is got[3]
+    big = _rand((8, 16), seed=9) | 1                      # over the bound
+    G._device_schedule(big.tobytes(), 8, 16, cpu)
+    assert G._coef_bytes == 3 * size and len(G._coef_cache) == 3
