@@ -7,11 +7,12 @@ over GF(2^8) (poly 0x11D) for data (B, k, L) uint8, any L >= 0.
 
 - On a CUDA tensor it launches `csrc/gf_apply.cu` (sm_90a), built with
   nvcc on first use into `ceph_tpu_torch/_build/` and loaded with
-  ctypes. A build or launch failure raises; nothing falls back. The
-  kernel walks a schedule that `compile_schedule` makes from the matrix
-  once, with numpy (the counterpart of the Pallas kernel's trace-time
-  skip of zero columns and coefficients), kept on the device in a
-  least-recently-used cache bounded by COEF_CACHE_BYTES.
+  ctypes (utils/nvcc.py). A build or launch failure raises; nothing
+  falls back. The kernel walks a schedule that `compile_schedule` makes
+  from the matrix once, with numpy (the counterpart of the Pallas
+  kernel's trace-time skip of zero columns and coefficients), kept on
+  the device in a least-recently-used cache bounded by
+  COEF_CACHE_BYTES.
 - On a CPU tensor it runs `apply_matrix_plain`, the torch twin of the
   same SWAR function on int32 words (`pallas_gf._kernel_body`).
   `run_schedule` interprets a compiled schedule the way the kernel
@@ -26,10 +27,6 @@ import collections
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
@@ -37,12 +34,12 @@ import numpy as np
 import torch
 
 from ..gf.tables import bit_powers
+from ..utils import nvcc
 
 _REP = 0x01010101
 _SRC = Path(__file__).resolve().parent / "csrc" / "gf_apply.cu"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+BUILD_DIR = nvcc.BUILD_DIR
+_nvcc = nvcc.find
 
 # shared memory a block may stage one chunk of its row group's
 # coefficient words in (past the default 48 KiB by opt-in; two such
@@ -228,33 +225,10 @@ def run_schedule(sched: Schedule, data: torch.Tensor) -> torch.Tensor:
         out[:, :sched.m].view(np.uint8)[:, :, :L].copy())
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ((Path(home) / "bin" / "nvcc") if home else None,
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and Path(cand).exists():
-            return str(cand)
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                       "to build ceph_tpu_torch/ops/csrc/gf_apply.cu")
-
-
 def build() -> Path:
     """Compile gf_apply.cu into BUILD_DIR (once per source content) and
     return the shared library's path. Raises on a failed build."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"libgf_apply_{tag[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC.name} "
-                           f"(rc={proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return nvcc.build(_SRC, BUILD_DIR, _nvcc)
 
 
 def _load():

@@ -5,9 +5,14 @@
 
 Phases, each of which fails loudly (exit code 1, no result line):
   1. print the card's name and power limit; build every hand kernel
-     from the sources in the checkout;
+     from the sources in the checkout (gf_apply.cu and csum.cu, one
+     nvcc each, started together);
   2. hold each kernel bit-exact against its plain PyTorch version on
-     the card, at the main path's shapes and at odd ones;
+     the card, at the main path's shapes and at odd ones (CRC32C at
+     L in {0, 1, 7, 8, 9, 63, 64, 65, 4093, 4096, 524288} and B in {1,
+     3, 32, 352} for both seed conventions and crc32c_extend, XXH32 and
+     XXH64 at 13 lengths and seeds 0 and 42, misaligned row views
+     included, a sample of rows against the reference oracle);
   3. drive the main path at full width: RS k=8 m=3 over 1024 objects
      of 4 MiB (data made on the card from a seeded torch.Generator),
      in batches of 32: fused write (parity + 11 hinfo CRCs per object),
@@ -17,8 +22,9 @@ Phases, each of which fails loudly (exit code 1, no result line):
      reference, and check that the kernels were launched;
   4. time each kernel and its plain version with CUDA events around a
      run of back-to-back calls (warm, median per call), each kernel's
-     device time per launch in a torch.profiler trace and the host's
-     time per call, and the end-to-end encode GB/s, decode GB/s and
+     device time per launch in a torch.profiler trace (from CUDA
+     events behind a device sleep where three traces lose every
+     record, marked in `device_ms_from`) and the host's time per call, and the end-to-end encode GB/s, decode GB/s and
      recovery objects/s one call at a time, host overhead included;
   5. drive the PG backend the way its users do, at the same width:
      ECBackend.write_objects of 256 seeded 4 MiB objects in groups of
@@ -57,7 +63,24 @@ Phases, each of which fails loudly (exit code 1, no result line):
      read and a clean deep_scrub; SHEC k=4 m=3 c=2 writes 32 objects,
      rebuilds a shard (shec_cost) and reads degraded. Every rebuilt
      shard and hinfo equals the write's, every read is bit-exact, and
-     gf_apply must have launched.
+     gf_apply must have launched;
+  9. BlueStore block checksums and streaming: Checksummer for all five
+     algorithms over 1 GiB of seeded data on the card (256 x 4 MiB
+     objects, block_size 4096: 262,144 blocks a call), each held against
+     the kernels' plain versions on the card and a sample of 256 blocks
+     against the oracle, verify with two flipped bytes reporting the
+     first one's offset; StreamingCodec (RS k=8 m=3, tile 8 MiB, depth
+     2 and 3) over a pinned host stripe of 4 x 8 x (64 MiB + 777 B),
+     held against one apply of the whole stripe on the card, its
+     host-to-host GB/s beside a pinned host-to-device copy of the same
+     bytes; make_tiled_encoder at (32, 8, 4 MiB) with a 1 MiB tile
+     against the one-shot encode.
+Phases 3, 5, 7, 8 and 9 print the CRC32C kernel's launches and fail if
+there are none; phase 9 also needs XXH32, XXH64 and gf_apply launches.
+Phase 4 also times the checksum kernels at the main path's shapes
+(CRC32C over 256 and 352 rows of 512 KiB and the RMW delta's 4093-byte
+rows; XXH32 and XXH64 over 262,144 rows of 4 KiB) the way gf_apply's
+rows are timed, beside their plain versions and their bytes bound.
 Phase 2 holds gf_apply at the LRC and Clay matrices (Clay's also at
 the backend's (32, k, 8192)), a matrix with one non-zero coefficient,
 a row group with no entry, schedules whose shared-memory chunks pass 48
@@ -131,11 +154,24 @@ CLAY_PROFILE = "plugin=clay k=8 m=4 d=11"
 SHEC_PROFILE = "plugin=shec k=4 m=3 c=2"
 N_CODEC = 256
 N_SHEC = 32
+# phase 9: BlueStore's csum_block_size over 1 GiB; the streamed stripe
+CSUM_OBJECTS = 256
+CSUM_BLOCK = 4096
+STREAM_SHAPE = (4, K, (64 << 20) + 777)
+STREAM_TILE = 8 << 20
+TILED_SHAPE = (32, K, 4 << 20)
+TILED_TILE = 1 << 20
+# phase 2's checksum shapes
+CRC_LENGTHS = (0, 1, 7, 8, 9, 63, 64, 65, 4093, 4096, 524288)
+CRC_BATCHES = (1, 3, 32, 352)
+XXH_LENGTHS = (0, 1, 3, 4, 15, 16, 17, 31, 32, 33, 100, 4096, 4099)
+XXH_BATCHES = (1, 3, 333)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 at 3.35 TB/s,
-# int8 tensor cores at 1,979 Tops/s.
+# int8 tensor cores at 1,979 Tops/s, float32 outside them at 67 T/s.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+FP32_OPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -179,14 +215,19 @@ def cuda_ms(fn, warm: int = 3, reps: int = 7, calls: int = 1) -> float:
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, symbol: str, calls: int = 20) -> float:
+def kernel_device_ms(fn, symbol: str, calls: int = 20
+                     ) -> tuple[float, str]:
     """Milliseconds of device time per launch of the kernel whose
-    symbol holds `symbol`, from a torch.profiler trace of `calls`
-    calls after warm ones. The profiler runs one warm-up step of
-    `calls` calls with its tracing on but not kept, then records the
-    next `calls`. The trace must show every launch; one that does not
-    is logged with the count it shows and taken again, up to three
-    times, and then the phase fails."""
+    symbol holds `symbol`, and where the number came from. A
+    torch.profiler trace records `calls` calls after warm ones (one
+    warm-up step of `calls` calls with its tracing on but not kept
+    comes first) and must show every launch ("trace"). A trace can
+    lose kernel records, some of a run's or, now and then, all of them
+    for a while: one that does not show every launch is logged with
+    the count it shows and taken again, up to three times. If none
+    does, the time comes from CUDA events around `calls` back-to-back
+    calls queued behind a device sleep, so that the host's launch time
+    stays hidden ("events")."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(3):
@@ -205,10 +246,33 @@ def kernel_device_ms(fn, symbol: str, calls: int = 20) -> float:
         evs = [e for e in device_events(prof) if symbol in e.key]
         n = sum(e.count for e in evs)
         if n == calls:
-            return sum(e.self_device_time_total for e in evs) / n / 1e3
+            return (sum(e.self_device_time_total for e in evs) / n / 1e3,
+                    "trace")
         log(f"  the trace shows {n} launches of {symbol}, of {calls}: "
             f"tracing again")
-    fail(f"three traces show {n} launches of {symbol}, of {calls}")
+    log(f"  three traces show {n} launches of {symbol}, of {calls}: its "
+        f"device time from CUDA events behind a device sleep")
+    return fenced_ms(fn, calls), "events"
+
+
+def fenced_ms(fn, calls: int, reps: int = 5) -> float:
+    """Milliseconds per call of `calls` back-to-back calls, timed by
+    CUDA events that a device sleep holds back until the host has
+    queued them all: the device's time, gaps between launches
+    included, without the host's (median of `reps`)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)     # ~25 ms at the H100's clocks
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -400,6 +464,123 @@ def check_gf_kernel(torch, dev) -> dict:
     return {"max_abs_err": worst}
 
 
+def csum_counts() -> collections.Counter:
+    """The checksum kernels' launch counts by name."""
+    from ceph_tpu_torch.csum import kernels as C
+    return collections.Counter(C.launches)
+
+
+def csum_set(counts=None) -> None:
+    """Set the checksum kernels' counts (to zero by default)."""
+    from ceph_tpu_torch.csum import kernels as C
+    C.launches.clear()
+    C.launches.update(counts or {})
+
+
+def crc_launches(label: str) -> int:
+    """CRC32C launches since the counts were last set; fails on none."""
+    n = csum_counts()["crc32c"]
+    log(f"  crc32c launches in {label}: {n}")
+    if n == 0:
+        fail(f"{label} never launched the CRC32C kernel")
+    return n
+
+
+def check_csum_kernels(torch, dev) -> dict:
+    """Phase 2 for csum.cu: each kernel bit-exact against its plain
+    version on the card at every phase-2 shape (CRC32C with both seed
+    conventions and crc32c_extend with random registers; XXH32 and
+    XXH64 with seeds 0 and 42), row views whose starts and pitch reach
+    the 8-byte and byte-load paths, and a sample of rows against the
+    reference oracle. Fails unless the CRC cases reach the kernel's
+    three load widths, rows over several blocks and blocks of several
+    rows."""
+    import numpy as np
+
+    from ceph_tpu_torch.csum import kernels as C
+    from ceph_tpu_torch.csum import reference as R
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst, seen = 0, set()
+
+    def same(name, got, want):
+        nonlocal worst
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max()) if got.numel() else 0
+        worst = max(worst, err)
+        if err or got.shape != want.shape or not torch.equal(got, want):
+            fail(f"{name}: the kernel disagrees with its plain version")
+
+    def rows_of(B, L, offset=0, extra=0):
+        """(B, L) rows `offset` bytes into a buffer, L + extra apart."""
+        flat = torch.randint(0, 256, (offset + B * (L + extra) + 16,),
+                             dtype=torch.uint8, device=dev, generator=gen)
+        return flat[offset:offset + B * (L + extra)].view(B, L + extra)[
+            :, :L]
+
+    def sample(B):
+        return sorted({0, B - 1})
+
+    cases = [(B, L, 0, 0) for B in CRC_BATCHES for L in CRC_LENGTHS]
+    # row starts and pitches off the 16-byte grid: 8-byte and byte loads
+    cases += [(3, 4096, 8, 8), (32, 4093, 0, 0), (5, 4096, 1, 3),
+              (3, 524288, 3, 1), (2, 65, 5, 2)]
+    n_crc = 0
+    for B, L, off, extra in cases:
+        x = rows_of(B, L, off, extra)
+        name = f"crc32c ({B}, {L}) at +{off}, pitch {L + extra}"
+        for init, xorout in ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0)):
+            same(name, C.crc32c_blocks(x, init, xorout),
+                 C.crc32c_blocks_plain(x, init, xorout))
+        regs = torch.randint(0, 1 << 32, (B,), dtype=torch.int64,
+                             device=dev, generator=gen)
+        got = C.crc32c_extend(regs, x)
+        same(name + " extend", got, C.crc32c_extend_plain(regs, x))
+        # the oracle on a row or two (one row of 512 KiB at most)
+        if L < 524288 or B == 1:
+            host, hregs = x.cpu().numpy(), regs.cpu().numpy()
+            for i in sample(B):
+                if int(got[i]) != R.ceph_crc32c(int(hregs[i]), host[i]):
+                    fail(f"{name}: row {i} differs from the oracle")
+        plan = C.plan_for(B, L, sms)
+        pitch = x.stride(0) if B > 1 else 0
+        vec = next(v for v in (16, 8, 1)
+                   if x.data_ptr() % v == 0 and pitch % v == 0)
+        seen.add(("vec", vec))
+        seen.add(("blocks a row", plan.nb > 1))
+        seen.add(("rows a block", plan.log_sblk < 8 and B > 1))
+        n_crc += 1
+    for want in (("vec", 16), ("vec", 8), ("vec", 1), ("blocks a row", True),
+                 ("rows a block", True)):
+        if want not in seen:
+            fail(f"phase 2's CRC cases missed {want}: {sorted(seen)}")
+    log(f"  crc32c: {n_crc} shapes x (2 seed conventions + extend) equal "
+        f"to the plain version; sampled rows equal the oracle; reached "
+        f"{sorted(seen)}")
+    cases = [(B, L, 0, 0) for B in XXH_BATCHES for L in XXH_LENGTHS]
+    cases += [(5, 4096, 1, 3), (3, 4099, 4, 4), (7, 100, 8, 0)]
+    for B, L, off, extra in cases:
+        x = rows_of(B, L, off, extra)
+        host = x.cpu().numpy()
+        for seed in (0, 42):
+            name = f"({B}, {L}) at +{off}, pitch {L + extra}, seed {seed}"
+            h32 = C.xxh32_blocks(x, seed)
+            same("xxh32 " + name, h32, C.xxh32_blocks_plain(x, seed))
+            h64 = C.xxh64_blocks(x, seed)
+            same("xxh64 " + name, h64, C.xxh64_blocks_plain(x, seed))
+            for i in sample(B):
+                if int(h32[i]) != R.xxh32(host[i], seed) or \
+                        (int(h64[i, 0]) << 32 | int(h64[i, 1])) != \
+                        R.xxh64(host[i], seed):
+                    fail(f"xxhash {name}: row {i} differs from the oracle")
+    log(f"  xxh32 / xxh64: {len(cases)} shapes x seeds 0, 42 equal to the "
+        f"plain versions; sampled rows equal the oracle")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst}
+
+
 # ------------------------------------------------------------- phase 3
 
 def main_path(torch, dev) -> dict:
@@ -520,21 +701,22 @@ def gf_table(torch, dev, plain: bool = True) -> dict:
             fail(f"gf_apply disagrees with its plain version on {name} "
                  f"at ({BATCH},{k},{s_len})")
         ms = cuda_ms(lambda: G.apply_matrix_gf(mat, x), calls=20)
-        dev_ms = kernel_device_ms(lambda: G.apply_matrix_gf(mat, x),
-                                  "gf_apply_kernel")
+        dev_ms, dev_from = kernel_device_ms(
+            lambda: G.apply_matrix_gf(mat, x), "gf_apply_kernel")
         us = host_us(lambda: G.apply_matrix_gf(mat, x))
         nnz = int((mat != 0).sum())
         bound, by = gf_bound(BATCH, k, m, s_len, nnz)
-        row = {"ms": ms, "device_ms": dev_ms, "host_us": us,
-               "bound_ms": bound, "bound_by": by, "nnz": nnz,
+        row = {"ms": ms, "device_ms": dev_ms, "device_ms_from": dev_from,
+               "host_us": us, "bound_ms": bound, "bound_by": by, "nnz": nnz,
                "max_abs_err": 0, "shape": [BATCH, k, m, s_len]}
         extra = ""
         if label == "ragged":
             # the same launch with a schedule of no entry: the kernel's
             # fixed path at this shape
             zero = np.zeros_like(mat)
-            row["empty_schedule_ms"] = kernel_device_ms(
-                lambda: G.apply_matrix_gf(zero, x), "gf_apply_kernel")
+            row["empty_schedule_ms"], row["empty_schedule_ms_from"] = \
+                kernel_device_ms(lambda: G.apply_matrix_gf(zero, x),
+                                 "gf_apply_kernel")
             extra = (f"; with an all-zero matrix "
                      f"{row['empty_schedule_ms']:.5f} ms on the device")
         if plain:
@@ -556,6 +738,74 @@ def gf_table(torch, dev, plain: bool = True) -> dict:
     return out, {label: mats[name] for label, name, _ in rows}
 
 
+def csum_bound(B: int, L: int, out_bytes: int, ops_per_byte: float
+               ) -> tuple[float, str]:
+    """Least time (ms) for a checksum of B rows of L bytes: the larger
+    of the bytes (each input byte read once, `out_bytes` a row written)
+    through HBM and `ops_per_byte` integer operations a byte at the
+    card's float32 rate outside the tensor cores (67 T/s; the data
+    sheet gives no integer rate there)."""
+    t_bytes = B * (L + out_bytes) / HBM_BYTES_PER_S
+    t_ops = B * L * ops_per_byte / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def csum_table(torch, dev) -> dict:
+    """The checksum kernels at the main path's shapes: CRC32C over 256
+    rows of 512 KiB (an (32, 8) batch's data rows, PERF.md's row), the
+    fused write's 352 rows (data and parity), the RMW delta's 64 data
+    and 96 parity rows of 4093 bytes (4093 apart: the byte-load path);
+    XXH32 and XXH64 over 262,144 rows of 4 KiB (phase 9's 1 GiB). For
+    each: ms per call (CUDA events around 20 calls), the kernel's device
+    ms per launch (a trace), host us per call, the plain version's ms,
+    and the bound. The bound's operations: CRC32C one table lookup and
+    one XOR a byte, XXH32 3 per 4 bytes, XXH64 3 per 8."""
+    from ceph_tpu_torch.csum import kernels as C
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+    sl = OBJECT_SIZE // K
+    rows = (("crc32c", "crc32c_256x512KiB", (BATCH * K, sl), 2.0),
+            ("crc32c", "crc32c_352x512KiB", (BATCH * (K + M), sl), 2.0),
+            ("crc32c", "crc32c_rmw_64x4093", (BATCH * 2, 4093), 2.0),
+            ("crc32c", "crc32c_rmw_96x4093", (BATCH * M, 4093), 2.0),
+            ("xxh32", "xxh32_262144x4KiB",
+             (CSUM_OBJECTS * OBJECT_SIZE // CSUM_BLOCK, CSUM_BLOCK), 0.75),
+            ("xxh64", "xxh64_262144x4KiB",
+             (CSUM_OBJECTS * OBJECT_SIZE // CSUM_BLOCK, CSUM_BLOCK), 0.375))
+    fns = {"crc32c": (lambda x: C.crc32c_blocks(x, 0xFFFFFFFF, 0),
+                      lambda x: C.crc32c_blocks_plain(x, 0xFFFFFFFF, 0)),
+           "xxh32": (C.xxh32_blocks, C.xxh32_blocks_plain),
+           "xxh64": (C.xxh64_blocks, C.xxh64_blocks_plain)}
+    out = {}
+    for kernel, label, (B, L), ops in rows:
+        x = torch.randint(0, 256, (B, L), dtype=torch.uint8, device=dev,
+                          generator=gen)
+        fn, plain = fns[kernel]
+        if not torch.equal(fn(x), plain(x)):
+            fail(f"{label}: {kernel} disagrees with its plain version")
+        ms = cuda_ms(lambda: fn(x), calls=20)
+        dev_ms, dev_from = kernel_device_ms(lambda: fn(x),
+                                            f"{kernel}_kernel")
+        us = host_us(lambda: fn(x))
+        plain_ms = cuda_ms(lambda: plain(x), 1, 3)
+        bound, by = csum_bound(B, L, 16 if kernel == "xxh64" else 8, ops)
+        out[label] = {"ms": ms, "device_ms": dev_ms,
+                      "device_ms_from": dev_from, "host_us": us,
+                      "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by, "shape": [B, L],
+                      "device_share_of_bound": bound / dev_ms,
+                      "gbps": B * L / ms / 1e6}
+        log(f"  {kernel} ({B}, {L}): equal to plain; {ms:.5f} ms per call "
+            f"({B * L / ms / 1e6:.2f} GB/s), {dev_ms:.5f} ms on the "
+            f"device, {us:.1f} us of host time per call; plain "
+            f"{plain_ms:.4f} ms; bound {bound:.6f} ms ({by})")
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
 def measure(torch, dev, ctx) -> dict:
     import numpy as np
 
@@ -564,6 +814,7 @@ def measure(torch, dev, ctx) -> dict:
 
     coder, sl = ctx["coder"], ctx["sl"]
     out, mats = gf_table(torch, dev)
+    out["csum"] = csum_table(torch, dev)
     for label, mat in mats.items():
         sched = G.compile_schedule(mat)
         out[label]["entries"] = len(sched.ent)
@@ -732,10 +983,11 @@ def backend_path(torch, dev) -> dict:
         fail("RMW wave: objects read back differ from the overlay")
     full = _fused_write_fn(be.coder.matrix.tobytes(), M, K, be.coder.impl,
                            sl, BATCH, be.device)
-    ref0 = gf_counts(G)                   # the reference is not the path
-    parity, crcs = full(torch.from_numpy(
+    ref0, crc0 = gf_counts(G), csum_counts()    # the reference is not
+    parity, crcs = full(torch.from_numpy(         # the path
         be.sinfo.object_to_shards(data)).to(dev))
     gf_set(G, ref0)
+    csum_set(crc0)
     parity, crcs = parity.cpu().numpy(), crcs.cpu().numpy()
     for bi, nm in enumerate(wave):
         for s in range(n):
@@ -765,8 +1017,9 @@ def backend_path(torch, dev) -> dict:
         f"{json.dumps(by_shape(shapes))}")
     if launches == 0:
         fail("the backend path never launched gf_apply")
+    crc = crc_launches("phase 5")
     trace = trace_backend(torch, be, gen)
-    return {"gf_apply_launches": launches,
+    return {"gf_apply_launches": launches, "crc32c_launches": crc,
             "gf_apply_by_shape": by_shape(shapes),
             "write_gbps": write_gbps, "write_s": t_write,
             "recovery_objects_per_s": rec_rate, "recover_s": t_rec,
@@ -784,9 +1037,26 @@ def device_events(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
-def device_busy_s(prof) -> float:
-    """Seconds of device work (kernels and copies) in a profile."""
-    return sum(e.self_device_time_total for e in device_events(prof)) / 1e6
+def device_busy_s(prof) -> float | None:
+    """Seconds of device work (kernels and copies) in a profile; None,
+    logged, where the trace holds no device entry at all (the tracer
+    lost its records: see `kernel_device_ms`)."""
+    evs = device_events(prof)
+    if not evs:
+        log("  the trace holds no device entry: device busy time and "
+            "idle share not measured")
+        return None
+    return sum(e.self_device_time_total for e in evs) / 1e6
+
+
+def idle_share(busy: float | None, wall: float) -> float | None:
+    """1 - device-busy / wall, or None where busy was not measured."""
+    return None if busy is None else 1 - busy / wall
+
+
+def show(x: float | None) -> str:
+    """A share or a time in seconds for a log line."""
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def trace_backend(torch, be, gen) -> dict:
@@ -850,8 +1120,8 @@ def trace_backend(torch, be, gen) -> dict:
     for k in ("write", "recover"):
         busy = out[f"{k}_device_busy_s"]
         wall = out[f"{k}_group_s" if k == "write" else "recover_s"]
-        log(f"  traced {k}: wall {wall:.4f} s, device busy {busy:.4f} s, "
-            f"idle share {1 - busy / wall:.4f}")
+        log(f"  traced {k}: wall {wall:.4f} s, device busy {show(busy)} "
+            f"s, idle share {show(idle_share(busy, wall))}")
     log("  trace " + json.dumps(out))
     return out
 
@@ -968,7 +1238,7 @@ def placement_path(torch, dev) -> dict:
         busy = device_busy_s(prof)
         out[f"trace_{lanes}"] = {
             "wall_s": wall, "device_busy_s": busy,
-            "idle_share": 1 - busy / wall,
+            "idle_share": idle_share(busy, wall),
             "device_ops": sum(e.count for e in device_events(prof)),
             "top_device": [[e.key[:50], e.self_device_time_total / 1e3,
                             e.count] for e in sorted(
@@ -978,7 +1248,7 @@ def placement_path(torch, dev) -> dict:
         f"({CRUSH_LANES / out['do_rule_10k_ms'] * 1e3:.0f} placements/s), "
         f"{out['do_rule_10k_syncs']:.0f} host syncs, "
         f"{out[f'trace_{CRUSH_LANES}']['device_ops']} device ops, idle "
-        f"share {out[f'trace_{CRUSH_LANES}']['idle_share']:.4f}")
+        f"share {show(out[f'trace_{CRUSH_LANES}']['idle_share'])}")
 
     # (b) 10,000,000 placements; the digest must be the JAX package's
     nb = CRUSH_PLACEMENTS // CRUSH_SUB
@@ -1122,12 +1392,12 @@ def cluster_path(torch, dev) -> dict:
              f"{h['pgs_degraded']} degraded PGs")
     out.update({"recovery_tick_s": tick_s, "recovered_objects": recovered,
                 "recovery_device_busy_s": busy,
-                "recovery_idle_share": 1 - busy / tick_s,
+                "recovery_idle_share": idle_share(busy, tick_s),
                 "recovery_objects_per_s": recovered / tick_s})
     log(f"  out -> remap -> recover: tick of {c.down_out_interval:.0f} s "
         f"(virtual) took {tick_s:.3f} s and recovered {recovered} objects "
-        f"({recovered / tick_s:.1f} objects/s); device busy {busy:.4f} s, "
-        f"idle share {1 - busy / tick_s:.4f} (torch.profiler)")
+        f"({recovered / tick_s:.1f} objects/s); device busy {show(busy)} "
+        f"s, idle share {show(idle_share(busy, tick_s))} (torch.profiler)")
     verify("after the out-recovery")
 
     # kill, write while down, revive before out: PG-log replay
@@ -1323,7 +1593,7 @@ def codecs_path(torch, dev) -> dict:
     one = codec_recover(be, [0], "clay_planes", profile=prof)
     busy = device_busy_s(prof)
     one["device_busy_s"] = busy
-    one["idle_share"] = 1 - busy / one["s"]
+    one["idle_share"] = idle_share(busy, one["s"])
     # the kernel's own share of the device time, and the largest entries
     gf = [e for e in device_events(prof) if "gf_apply_kernel" in e.key]
     one["gf_apply_device_s"] = sum(e.self_device_time_total
@@ -1333,7 +1603,9 @@ def codecs_path(torch, dev) -> dict:
         [e.key[:60], e.self_device_time_total / 1e3, e.count]
         for e in sorted(device_events(prof),
                         key=lambda e: -e.self_device_time_total)[:6]]
-    if one["gf_apply_traced_launches"] == 0:
+    # where the tracer lost every record, phase 8's launch count
+    # (below) is what shows the kernel ran
+    if one["gf_apply_traced_launches"] == 0 and busy is not None:
         fail("the traced Clay repair shows no gf_apply_kernel launch")
     wire = one["stats"]["helper_bytes_on_wire"]
     if one["stats"]["range_batches"] < 1 \
@@ -1344,8 +1616,8 @@ def codecs_path(torch, dev) -> dict:
              f"helpers flagged")
     log(f"  Clay repair: helper bytes / (objects x k x chunk) = "
         f"{wire / (N_CODEC * c.k * sl)} (11/32 = {11 / 32}); both flipped "
-        f"bytes flagged at the source; device busy {busy:.4f} s, idle share "
-        f"{one['idle_share']:.4f} (torch.profiler); gf_apply_kernel "
+        f"bytes flagged at the source; device busy {show(busy)} s, idle "
+        f"share {show(one['idle_share'])} (torch.profiler); gf_apply_kernel "
         f"{one['gf_apply_device_s']:.4f} s of device time in "
         f"{one['gf_apply_traced_launches']} launches")
     rep = be.repair_pg()
@@ -1372,6 +1644,178 @@ def codecs_path(torch, dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 9
+
+def bluestore_path(torch, dev) -> dict:
+    """BlueStore block checksums and streaming on the card: Checksummer
+    over 1 GiB in 4 KiB blocks for the five algorithms, verify with two
+    flipped bytes, StreamingCodec over a pinned host stripe larger than
+    a tile at depths 2 and 3, make_tiled_encoder; each held against its
+    plain version or the one-shot encode. The counts of the path's
+    launches are read before the comparisons, which do not count."""
+    import numpy as np
+
+    from ceph_tpu_torch.csum import CSUM_ALGORITHMS, Checksummer
+    from ceph_tpu_torch.csum import kernels as C
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.ops import gf_kernel as G
+    from ceph_tpu_torch.ops.streaming import (StreamingCodec,
+                                              make_tiled_encoder)
+    from ceph_tpu_torch.utils.perf_counters import PerfCountersBuilder
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    out = {}
+    data = torch.randint(0, 256, (CSUM_OBJECTS * OBJECT_SIZE,),
+                         dtype=torch.uint8, device=dev, generator=gen)
+    nblocks = data.numel() // CSUM_BLOCK
+    sums = {}
+    for algo in CSUM_ALGORITHMS:
+        cs = Checksummer(algo, CSUM_BLOCK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sums[algo] = cs.calculate(data, **entry_device(dev))
+        secs = time.perf_counter() - t0
+        if sums[algo].shape != (nblocks,):
+            fail(f"Checksummer {algo}: {sums[algo].shape} checksums")
+        out[f"{algo}_s"] = secs
+        log(f"  Checksummer({algo!r}, {CSUM_BLOCK}).calculate over "
+            f"{data.numel() >> 30} GiB ({nblocks} blocks): {secs:.4f} s "
+            f"({data.numel() / secs / 1e9:.2f} GB/s, host clock, "
+            f"checksums to the host included)")
+    # verify: two flipped bytes; the first one's block offset comes back
+    first = nblocks // 4 * CSUM_BLOCK + 17
+    second = nblocks * 3 // 4 * CSUM_BLOCK + 3
+    data[first] ^= 0x5A
+    data[second] ^= 0x01
+    cs = Checksummer("crc32c", CSUM_BLOCK)
+    bad = cs.verify(data, sums["crc32c"], **entry_device(dev))
+    data[first] ^= 0x5A
+    data[second] ^= 0x01
+    if bad != first // CSUM_BLOCK * CSUM_BLOCK:
+        fail(f"verify reported offset {bad}, want "
+             f"{first // CSUM_BLOCK * CSUM_BLOCK}")
+    if cs.verify(data, sums["crc32c"], **entry_device(dev)) != -1:
+        fail("verify of the restored data is not clean")
+    log(f"  verify with bytes {first} and {second} flipped: first bad "
+        f"offset {bad}; clean once restored")
+
+    # StreamingCodec: host stripe in pinned memory, parity to the host
+    rs = factory(PROFILE, **entry_device(dev)).matrix
+    B, k, L = STREAM_SHAPE
+    stripe = torch.randint(0, 256, STREAM_SHAPE, dtype=torch.uint8,
+                           device=dev, generator=gen)
+    host = torch.empty(STREAM_SHAPE, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    host.copy_(stripe)
+    perf = (PerfCountersBuilder("chip_smoke_stream")
+            .add_u64_counter("stream_launches")
+            .add_u64_counter("stream_bytes")
+            .add_time_avg("stream_drain_time").create_perf_counters())
+    parities = {}
+    for depth in (2, 3):
+        sc = StreamingCodec(rs, tile=STREAM_TILE, depth=depth, perf=perf,
+                            **entry_device(dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parities[depth] = sc.encode(host.numpy())
+        secs = time.perf_counter() - t0
+        out[f"stream_depth{depth}_s"] = secs
+        out[f"stream_depth{depth}_gbps"] = host.numel() / secs / 1e9
+        log(f"  StreamingCodec depth {depth}, tile {STREAM_TILE >> 20} MiB "
+            f"over a host stripe {STREAM_SHAPE}: {secs:.4f} s, "
+            f"{host.numel() / secs / 1e9:.3f} GB/s host to host")
+    out["stream_counters"] = {key: perf.get(key) for key in (
+        "stream_launches", "stream_bytes", "stream_drain_time")}
+
+    # make_tiled_encoder on the card against the one-shot encode
+    x = torch.randint(0, 256, TILED_SHAPE, dtype=torch.uint8, device=dev,
+                      generator=gen)
+    tiled = make_tiled_encoder(rs, tile=TILED_TILE)(x)
+    counts = {"csum": csum_counts(), "gf": gf_counts(G)}
+    out["launches"] = dict(counts["csum"])
+    out["gf_apply_launches"] = counts["gf"][0]
+    log(f"  phase 9's launches: {dict(counts['csum'])}, gf_apply "
+        f"{counts['gf'][0]}")
+    for name in ("crc32c", "xxh32", "xxh64"):
+        if counts["csum"][name] == 0:
+            fail(f"phase 9 never launched the {name} kernel")
+    if counts["gf"][0] == 0:
+        fail("phase 9 never launched gf_apply")
+
+    # the comparisons, uncounted: the plain versions on the card, the
+    # oracle on a sample, one apply of the whole stripe
+    blocks = data.view(nblocks, CSUM_BLOCK)
+    crc = C.crc32c_blocks_plain(blocks, 0xFFFFFFFF, 0)
+    plain = {"crc32c": crc, "crc32c_16": crc & 0xFFFF,
+             "crc32c_8": crc & 0xFF,
+             "xxhash32": C.xxh32_blocks_plain(blocks)}
+    pairs = C.xxh64_blocks_plain(blocks).cpu().numpy().astype(np.uint64)
+    del crc
+    pick = np.sort(np.random.default_rng(SEED + 9).choice(
+        nblocks, min(256, nblocks), replace=False))
+    sample = blocks[torch.from_numpy(pick).to(dev)].cpu().numpy()
+    for algo in CSUM_ALGORITHMS:
+        want = (pairs[:, 0] << np.uint64(32)) | pairs[:, 1] \
+            if algo == "xxhash64" else \
+            plain[algo].cpu().numpy().astype(np.uint32)
+        if sums[algo].dtype != want.dtype or \
+                not np.array_equal(sums[algo], want):
+            fail(f"Checksummer {algo} on the card differs from the "
+                 f"kernels' plain versions")
+        oracle = Checksummer(algo, CSUM_BLOCK).calculate(sample,
+                                                         device=False)
+        if not np.array_equal(sums[algo][pick], oracle):
+            fail(f"Checksummer {algo}: sampled blocks differ from the "
+                 f"oracle")
+    log(f"  Checksummer: all {len(CSUM_ALGORITHMS)} algorithms equal the "
+        f"plain versions on all {nblocks} blocks and the oracle on "
+        f"{len(pick)}")
+    del plain, pairs, blocks
+    ref0 = gf_counts(G)
+    want = G.apply_matrix_gf(rs, stripe).cpu().numpy()
+    if not torch.equal(tiled, G.apply_matrix_gf(rs, x)):
+        fail("make_tiled_encoder differs from the one-shot encode")
+    gf_set(G, ref0)
+    for depth, parity in parities.items():
+        if not np.array_equal(parity, want):
+            fail(f"StreamingCodec depth {depth} differs from one apply of "
+                 f"the whole stripe")
+    log(f"  StreamingCodec (depths 2, 3) equals one apply of the whole "
+        f"stripe; make_tiled_encoder {TILED_SHAPE}, tile {TILED_TILE} "
+        f"equals the one-shot encode")
+    # the PCIe bound: a pinned host-to-device copy of the same bytes
+    dst = torch.empty_like(stripe)
+    h2d = cuda_ms(lambda: dst.copy_(host, non_blocking=True), 1, 3)
+    out["h2d_pinned_ms"] = h2d
+    out["h2d_pinned_gbps"] = host.numel() / h2d / 1e6
+    log(f"  pinned host-to-device copy of the stripe: {h2d:.3f} ms, "
+        f"{out['h2d_pinned_gbps']:.2f} GB/s")
+    del data, stripe, host, dst, x, tiled
+    torch.cuda.empty_cache()
+    return out
+
+
+def build_all() -> None:
+    """Phase 1: build every kernel source, one nvcc each, all started
+    together; print each one's build time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ceph_tpu_torch.csum import kernels as C
+    from ceph_tpu_torch.ops import gf_kernel as G
+
+    def timed(build):
+        t0 = time.perf_counter()
+        path = build()
+        return path, time.perf_counter() - t0
+    with ThreadPoolExecutor(2) as pool:
+        jobs = {"gf_apply.cu": pool.submit(timed, G.build),
+                "csum.cu": pool.submit(timed, C.build)}
+        for name, job in jobs.items():
+            path, secs = job.result()
+            log(f"phase 1: built {name} in {secs:.1f} s ({path.name})")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1387,28 +1831,32 @@ def main() -> None:
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    G.build()
-    log(f"phase 1: built gf_apply.cu in {time.perf_counter() - t0:.1f} s")
     if sys.argv[1:] == ["--gf-times"]:
+        t0 = time.perf_counter()
+        G.build()
+        log(f"phase 1: built gf_apply.cu in {time.perf_counter() - t0:.1f} s")
         rows, _ = gf_table(torch, dev, plain=False)
         log(card_line())
         log(json.dumps({"gf_times": rows}))
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: none, or --gf-times")
+    build_all()
 
     log("phase 2: kernels against their plain versions")
     gf_check = check_gf_kernel(torch, dev)
+    csum_check = check_csum_kernels(torch, dev)
 
     log("phase 3: main path")
     gf_set(G)
+    csum_set()
     ctx = main_path(torch, dev)
     launches, shapes3 = gf_counts(G)
     log(f"  gf_apply launches on the main path: {launches}, by "
         f"(k,m,L,vec): {json.dumps(by_shape(shapes3))}")
     if launches == 0:
         fail("the main path never launched gf_apply")
+    crc3 = crc_launches("phase 3")
 
     log("phase 4: times")
     times = measure(torch, dev, ctx)
@@ -1416,8 +1864,10 @@ def main() -> None:
 
     log("phase 5: the PG backend path")
     gf_set(G)
+    csum_set()
     backend = backend_path(torch, dev)
     launches5 = backend["gf_apply_launches"]
+    crc5 = backend["crc32c_launches"]
     log("backend " + json.dumps(backend))
 
     log("phase 6: CRUSH placement at BASELINE config #5")
@@ -1426,17 +1876,20 @@ def main() -> None:
 
     log("phase 7: the cluster's failure -> remap -> recovery path")
     gf_set(G)
+    csum_set()
     cluster = cluster_path(torch, dev)
     launches7, shapes7 = gf_counts(G)
     log(f"  gf_apply launches in phase 7: {launches7}, by (k,m,L,vec): "
         f"{json.dumps(by_shape(shapes7))}")
     if launches7 == 0:
         fail("the cluster path never launched gf_apply")
+    crc7 = crc_launches("phase 7")
     log("cluster " + json.dumps(cluster))
 
     log("phase 8: BASELINE configs #3 (LRC) and #4 (Clay), and SHEC, "
         "through the PG backend")
     gf_set(G)
+    csum_set()
     t0 = time.perf_counter()
     codecs = codecs_path(torch, dev)
     launches8, shapes8 = gf_counts(G)
@@ -1445,15 +1898,28 @@ def main() -> None:
         f"{json.dumps(by_shape(shapes8))}")
     if launches8 == 0:
         fail("the codec paths never launched gf_apply")
+    crc8 = crc_launches("phase 8")
     log("codecs " + json.dumps(codecs))
+
+    log("phase 9: BlueStore block checksums and streaming")
+    gf_set(G)
+    csum_set()
+    t0 = time.perf_counter()
+    bluestore = bluestore_path(torch, dev)
+    launches9 = bluestore["gf_apply_launches"]
+    by9 = bluestore["launches"]
+    log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+    log("bluestore " + json.dumps(bluestore))
     kernels = [{
         "name": "gf_apply",
         "route": "cuda",
         "source": "ceph_tpu_torch/ops/csrc/gf_apply.cu",
         "replaces": "ceph_tpu/ops/pallas_gf.py:103",
-        "launches": launches + launches5 + launches7 + launches8,
+        "launches": launches + launches5 + launches7 + launches8
+        + launches9,
         "launches_by_phase": {"3": launches, "5": launches5,
-                              "7": launches7, "8": launches8},
+                              "7": launches7, "8": launches8,
+                              "9": launches9},
         "launches_by_shape": {"3": by_shape(shapes3),
                               "5": backend["gf_apply_by_shape"],
                               "7": by_shape(shapes7),
@@ -1469,6 +1935,31 @@ def main() -> None:
                                        "clay_encode", "clay_repair",
                                        "clay_decode", "shec_encode")},
     }]
+    csum = times["csum"]
+    crc_phases = {"3": crc3, "5": crc5, "7": crc7, "8": crc8,
+                  "9": by9["crc32c"]}
+    for name, replaces, main_row, by_phase, extra in (
+            ("crc32c", "ceph_tpu/csum/kernels.py:113", "crc32c_256x512KiB",
+             crc_phases, ("crc32c_352x512KiB", "crc32c_rmw_64x4093",
+                          "crc32c_rmw_96x4093")),
+            ("xxh32", "ceph_tpu/csum/kernels.py:245", "xxh32_262144x4KiB",
+             {"9": by9["xxh32"]}, ()),
+            ("xxh64", "ceph_tpu/csum/kernels.py:400", "xxh64_262144x4KiB",
+             {"9": by9["xxh64"]}, ())):
+        row = csum[main_row]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ceph_tpu_torch/csum/csrc/csum.cu",
+            "replaces": replaces,
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
+            "max_abs_err": csum_check["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "shape": row["shape"],
+            "device_ms": row["device_ms"],
+            "device_ms_from": row["device_ms_from"],
+            "host_us": row["host_us"], **{key: csum[key] for key in extra}})
     log("e2e " + json.dumps(times["e2e"]))
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -39,7 +39,8 @@ def test_port_has_the_slice_modules():
                  "osd.osdmap", "utils.log", "utils.config",
                  "utils.op_tracker", "mon.monitor", "osd.peering",
                  "osd.scheduler", "osd.objclass", "mgr.pg_autoscaler",
-                 "osd.cluster", "ec.lrc", "ec.clay", "ec.shec"):
+                 "osd.cluster", "ec.lrc", "ec.clay", "ec.shec",
+                 "csum.checksummer", "ops.streaming", "utils.nvcc"):
         assert f"ceph_tpu_torch.{name}" in mods, name
 
 
