@@ -22,8 +22,9 @@ The device programs:
 - `_fused_delta_fn(...)(deltas)`: the RMW parity-delta encode plus the
   zero-seed CRCs of every delta row, for any window length;
 - `_build_recover_program(dec_fn, verify, host_crc)`: decode, then the
-  CRC of the rebuilt rows, then the CRC of the helpers' XOR-fold,
-  compared with `_expected_fold_crcs`.
+  CRCs of the rebuilt rows and of the helpers' XOR-fold (one CRC
+  launch), the fold's compared with `_expected_fold_crcs`.
+The fused programs' CRCs are one `crc32c_sets` launch a call.
 CRCs leave the device as int64 tensors holding uint32 values and are
 turned into uint32 arrays before they reach HashInfo or a comparison.
 
@@ -48,7 +49,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..csum.kernels import crc32c_blocks
+from ..csum.kernels import CrcRows, crc32c_blocks, crc32c_sets
 from ..ec.interface import ErasureCode, host_array, resolve_device
 from ..ec.registry import factory
 from ..ec.rs import ReedSolomon
@@ -217,12 +218,14 @@ def _fused_write_fn(matrix_bytes: bytes, m: int, k: int, impl: str,
                 f"fused write wants ({bucket}, {k}, {sl}) uint8 on "
                 f"{device}, got {tuple(d.shape)} {d.dtype} on {d.device}")
         parity = enc(d)
-        # the CRCs of [data; parity] rows, without concatenating them
-        dcrc = crc32c_blocks(d.reshape(bucket * k, sl), init=_SEED,
-                             xorout=0).reshape(bucket, k)
-        pcrc = crc32c_blocks(parity.reshape(bucket * m, sl), init=_SEED,
-                             xorout=0).reshape(bucket, m)
-        return parity, torch.cat([dcrc, pcrc], dim=1)
+        # the CRCs of [data; parity] rows in one launch, without
+        # concatenating the rows
+        crc = crc32c_sets([CrcRows(d.reshape(bucket * k, sl), _SEED, 0),
+                           CrcRows(parity.reshape(bucket * m, sl), _SEED,
+                                   0)])
+        return parity, torch.cat([crc[:bucket * k].reshape(bucket, k),
+                                  crc[bucket * k:].reshape(bucket, m)],
+                                 dim=1)
     return fused
 
 
@@ -245,11 +248,11 @@ def _fused_delta_fn(matrix_bytes: bytes, m: int, t: int, impl: str,
                 f"fused delta wants ({bucket}, {t}, {wl}) uint8 on "
                 f"{device}, got {tuple(d.shape)} {d.dtype} on {d.device}")
         parity = enc(d)
-        dcrc = crc32c_blocks(d.reshape(bucket * t, wl), init=0,
-                             xorout=0).reshape(bucket, t)
-        pcrc = crc32c_blocks(parity.reshape(bucket * m, wl), init=0,
-                             xorout=0).reshape(bucket, m)
-        return parity, torch.cat([dcrc, pcrc], dim=1)
+        crc = crc32c_sets([CrcRows(d.reshape(bucket * t, wl), 0, 0),
+                           CrcRows(parity.reshape(bucket * m, wl), 0, 0)])
+        return parity, torch.cat([crc[:bucket * t].reshape(bucket, t),
+                                  crc[bucket * t:].reshape(bucket, m)],
+                                 dim=1)
     return fused
 
 
@@ -293,16 +296,19 @@ def _build_recover_program(dec_fn, verify: bool, host_crc: bool):
         rebuilt = dec_fn(stack)        # (B, E, sl) — sl may exceed the
         E = rebuilt.shape[1]           # staged rl (range plans ship
         out_len = rebuilt.shape[2]     # sub-chunks, rebuild whole rows)
-        rcrc = crc32c_blocks(rebuilt.reshape(B * E, out_len), init=_SEED,
-                             xorout=0).reshape(B, E)
+        rows = CrcRows(rebuilt.reshape(B * E, out_len), _SEED, 0)
         if verify:
+            # the rebuilt rows' CRCs and the helper fold's (rl bytes) in
+            # one launch
             fold = xor_reduce(stack, dim=1)
-            fcrc = crc32c_blocks(fold, init=_SEED, xorout=0)
+            crc = crc32c_sets([rows, CrcRows(fold, _SEED, 0)])
+            rcrc, fcrc = crc[:B * E].reshape(B, E), crc[B * E:]
             if not isinstance(expfold, torch.Tensor):
                 expfold = torch.from_numpy(
                     np.asarray(expfold).astype(np.int64))
             ok = fcrc == expfold.to(device=stack.device, dtype=torch.int64)
         else:
+            rcrc = crc32c_sets([rows]).reshape(B, E)
             ok = torch.ones((B,), dtype=torch.bool, device=stack.device)
         return rebuilt, rcrc, ok
     return fused

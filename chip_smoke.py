@@ -10,9 +10,13 @@ Phases, each of which fails loudly (exit code 1, no result line):
   2. hold each kernel bit-exact against its plain PyTorch version on
      the card, at the main path's shapes and at odd ones (CRC32C at
      L in {0, 1, 7, 8, 9, 63, 64, 65, 4093, 4096, 524288} and B in {1,
-     3, 32, 352} for both seed conventions and crc32c_extend, XXH32 and
-     XXH64 at 13 lengths and seeds 0 and 42, misaligned row views
-     included, a sample of rows against the reference oracle);
+     3, 32, 352} for both seed conventions and crc32c_extend, row views
+     at offsets 1, 2, 3, 4, 8 and more from the 16-byte grid with odd
+     pitches, the RMW delta's 64 and 96 rows of 4093 bytes, few long
+     rows, and crc32c_sets launches of 2, 3 and 4 sets of mixed L and
+     seeds; XXH32 and XXH64 at 13 lengths and seeds 0 and 42,
+     misaligned row views included; a sample of rows against the
+     reference oracle);
   3. drive the main path at full width: RS k=8 m=3 over 1024 objects
      of 4 MiB (data made on the card from a seeded torch.Generator),
      in batches of 32: fused write (parity + 11 hinfo CRCs per object),
@@ -78,9 +82,16 @@ Phases, each of which fails loudly (exit code 1, no result line):
 Phases 3, 5, 7, 8 and 9 print the CRC32C kernel's launches and fail if
 there are none; phase 9 also needs XXH32, XXH64 and gf_apply launches.
 Phase 4 also times the checksum kernels at the main path's shapes
-(CRC32C over 256 and 352 rows of 512 KiB and the RMW delta's 4093-byte
-rows; XXH32 and XXH64 over 262,144 rows of 4 KiB) the way gf_apply's
-rows are timed, beside their plain versions and their bytes bound.
+(CRC32C over 256 and 352 rows of 512 KiB, the fused write's and the
+recovery program's launches of two row sets, the RMW delta's 4093-byte
+rows alone and as its one launch, 1, 8 and 16 rows of 512 KiB and
+one object's fused write of 8 + 3 rows;
+XXH32 and XXH64 over 262,144 rows of 4 KiB) the way gf_apply's rows
+are timed, beside their plain versions and their bytes bound, and
+fails unless one call of the fused write, the fused RMW delta or the
+recovery program launches the CRC32C kernel exactly once. Phases 3,
+5, 7, 8 and 9 print the CRC32C launches by shape (B, L, vec a row
+set), which the kernels line carries.
 Phase 2 holds gf_apply at the LRC and Clay matrices (Clay's also at
 the backend's (32, k, 8192)), a matrix with one non-zero coefficient,
 a row group with no entry, schedules whose shared-memory chunks pass 48
@@ -101,6 +112,15 @@ vec).
 prints the card and one JSON object of phase 4's kernel rows (without
 the plain versions), and nothing else: copied into an older checkout,
 it times that checkout's gf_apply with the same method.
+
+    python3 chip_smoke.py --crc-times
+
+does the same for phase 4's CRC32C rows (the multi-set rows only where
+the checkout has crc32c_sets) and adds the microbenchmark of the CRC
+kernel's parts (tools/crc_microbench.cu: the loads alone, the shared
+and the lane-private tables' lookups alone, the lane-private lookups
+on the kernel's loads) with each part's instructions a byte from
+`cuobjdump -sass`.
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
 
@@ -166,6 +186,7 @@ CRC_LENGTHS = (0, 1, 7, 8, 9, 63, 64, 65, 4093, 4096, 524288)
 CRC_BATCHES = (1, 3, 32, 352)
 XXH_LENGTHS = (0, 1, 3, 4, 15, 16, 17, 31, 32, 33, 100, 4096, 4099)
 XXH_BATCHES = (1, 3, 333)
+FEW_LONG_ROWS = (1, 8, 16)   # phase 4's few-long-row CRC rows
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 at 3.35 TB/s,
 # int8 tensor cores at 1,979 Tops/s, float32 outside them at 67 T/s.
@@ -470,17 +491,34 @@ def csum_counts() -> collections.Counter:
     return collections.Counter(C.launches)
 
 
-def csum_set(counts=None) -> None:
-    """Set the checksum kernels' counts (to zero by default)."""
+def crc_shapes() -> collections.Counter:
+    """The CRC kernel's launch counts by shape ("B,L,vec" a row set)."""
+    from ceph_tpu_torch.csum import kernels as C
+    return collections.Counter(C.shapes)
+
+
+def csum_set(counts=None, shapes=None) -> None:
+    """Set the checksum kernels' counts, by name and the CRC kernel's by
+    shape (to zero by default)."""
     from ceph_tpu_torch.csum import kernels as C
     C.launches.clear()
     C.launches.update(counts or {})
+    C.shapes.clear()
+    C.shapes.update(shapes or {})
+
+
+# CRC launches by shape, each phase's as crc_launches read them
+CRC_BY_SHAPE: dict = {}
 
 
 def crc_launches(label: str) -> int:
-    """CRC32C launches since the counts were last set; fails on none."""
+    """CRC32C launches since the counts were last set; fails on none.
+    Keeps their shapes in CRC_BY_SHAPE[label]."""
     n = csum_counts()["crc32c"]
-    log(f"  crc32c launches in {label}: {n}")
+    CRC_BY_SHAPE[label] = dict(sorted(crc_shapes().items(),
+                                      key=lambda kv: -kv[1]))
+    log(f"  crc32c launches in {label}: {n}, by shape (B,L,vec; sets "
+        f"joined by +): {json.dumps(CRC_BY_SHAPE[label])}")
     if n == 0:
         fail(f"{label} never launched the CRC32C kernel")
     return n
@@ -491,10 +529,13 @@ def check_csum_kernels(torch, dev) -> dict:
     version on the card at every phase-2 shape (CRC32C with both seed
     conventions and crc32c_extend with random registers; XXH32 and
     XXH64 with seeds 0 and 42), row views whose starts and pitch reach
-    the 8-byte and byte-load paths, and a sample of rows against the
-    reference oracle. Fails unless the CRC cases reach the kernel's
-    three load widths, rows over several blocks and blocks of several
-    rows."""
+    every realignment of the CRC kernel's loads (start offsets 1, 2, 3,
+    4 and 8 from the 16-byte grid, odd pitches), the RMW delta's
+    4093-byte rows, few long rows, multi-set launches of mixed lengths
+    and seeds, and a sample of rows against the reference oracle. Fails
+    unless the CRC cases reach both load paths and every offset, rows
+    over several items, items of several rows, the short-row plan, few
+    long rows spread over every SM, and launches of 2, 3 and 4 sets."""
     import numpy as np
 
     from ceph_tpu_torch.csum import kernels as C
@@ -523,10 +564,30 @@ def check_csum_kernels(torch, dev) -> dict:
     def sample(B):
         return sorted({0, B - 1})
 
+    def reached(x, plan):
+        B = x.shape[0]
+        pitch = x.stride(0) if B > 1 else 0
+        vec = next(v for v in (16, 8, 4, 2, 1)
+                   if x.data_ptr() % v == 0 and pitch % v == 0)
+        seen.add(("vec", vec))
+        if plan.units:
+            seen.add(("offset", x.data_ptr() % 16))
+        seen.add(("items a row", plan.nb > 1))
+        seen.add(("rows an item", plan.log_lanes < 5 and B > 1))
+        seen.add(("short-row plan", plan.nb == 1 and plan.segments == 32
+                  and plan.seg <= C.MIN_SEG_UNITS))
+        seen.add(("few long rows on every SM",
+                  B <= 16 and plan.items(B) >= sms))
+
     cases = [(B, L, 0, 0) for B in CRC_BATCHES for L in CRC_LENGTHS]
-    # row starts and pitches off the 16-byte grid: 8-byte and byte loads
+    # row starts and pitches off the 16-byte grid: every realignment
     cases += [(3, 4096, 8, 8), (32, 4093, 0, 0), (5, 4096, 1, 3),
-              (3, 524288, 3, 1), (2, 65, 5, 2)]
+              (3, 524288, 3, 1), (2, 65, 5, 2), (7, 1000, 2, 5),
+              (9, 4093, 3, 0), (4, 300, 4, 1), (6, 777, 12, 3),
+              (3, 20000, 10, 6)]
+    # the RMW delta's rows (4093 apart) and few long rows
+    cases += [(64, 4093, 0, 0), (96, 4093, 0, 0), (11, 524288, 0, 0),
+              (16, 524288, 0, 0), (2, 1 << 21, 0, 0), (5, 524288, 1, 0)]
     n_crc = 0
     for B, L, off, extra in cases:
         x = rows_of(B, L, off, extra)
@@ -544,20 +605,55 @@ def check_csum_kernels(torch, dev) -> dict:
             for i in sample(B):
                 if int(got[i]) != R.ceph_crc32c(int(hregs[i]), host[i]):
                     fail(f"{name}: row {i} differs from the oracle")
-        plan = C.plan_for(B, L, sms)
-        pitch = x.stride(0) if B > 1 else 0
-        vec = next(v for v in (16, 8, 1)
-                   if x.data_ptr() % v == 0 and pitch % v == 0)
-        seen.add(("vec", vec))
-        seen.add(("blocks a row", plan.nb > 1))
-        seen.add(("rows a block", plan.log_sblk < 8 and B > 1))
+        reached(x, C.plan_for(B, L, sms))
         n_crc += 1
-    for want in (("vec", 16), ("vec", 8), ("vec", 1), ("blocks a row", True),
-                 ("rows a block", True)):
+    # one launch over several row sets: mixed L, offsets and seeds
+    set_cases = [
+        ((256, 4096, 0, 0, "blocks"), (96, 4096, 0, 0, "raw")),
+        ((64, 4093, 0, 0, "zero"), (96, 4093, 0, 0, "zero")),
+        ((64, 524288, 0, 0, "raw"), (32, 65536, 0, 0, "raw")),
+        ((3, 1000, 1, 3, "extend"), (5, 77, 2, 0, "raw"),
+         (1, 0, 0, 0, "blocks")),
+        ((7, 4093, 3, 0, "zero"), (2, 524288, 0, 0, "extend"),
+         (33, 31, 5, 1, "blocks"), (4, 64, 8, 0, "raw"))]
+    seeds = {"blocks": (0xFFFFFFFF, 0xFFFFFFFF), "raw": (0xFFFFFFFF, 0),
+             "zero": (0, 0)}
+    before = csum_counts()["crc32c"]
+    for spec in set_cases:
+        sets = []
+        for B, L, off, extra, kind in spec:
+            x = rows_of(B, L, off, extra)
+            regs = torch.randint(0, 1 << 32, (B,), dtype=torch.int64,
+                                 device=dev, generator=gen) \
+                if kind == "extend" else None
+            init, xorout = seeds.get(kind, (0xFFFFFFFF, 0xFFFFFFFF))
+            sets.append(C.CrcRows(x, init, xorout, regs))
+        for st, plan in zip(sets, C.plans_for(
+                [tuple(st.blocks.shape) for st in sets], sms)):
+            reached(st.blocks, plan)
+        name = "crc32c_sets " + " + ".join(
+            f"({B}, {L}) at +{off} {kind}" for B, L, off, _, kind in spec)
+        got = C.crc32c_sets(sets)
+        same(name, got, C.crc32c_sets_plain(sets))
+        seen.add(("sets", len(sets)))
+        seen.add(("sets of mixed L", len({s.blocks.shape[1]
+                                          for s in sets}) > 1))
+        seen.add(("sets of mixed seeds", len({k for *_, k in spec}) > 1))
+    if csum_counts()["crc32c"] - before != len(set_cases):
+        fail("a crc32c_sets call did not make exactly one launch")
+    for want in ([("vec", v) for v in (16, 8, 4, 2, 1)]
+                 + [("offset", o) for o in (1, 2, 3, 4, 8)]
+                 + [("items a row", True), ("rows an item", True),
+                    ("short-row plan", True),
+                    ("few long rows on every SM", True),
+                    ("sets", 2), ("sets", 3), ("sets", 4),
+                    ("sets of mixed L", True),
+                    ("sets of mixed seeds", True)]):
         if want not in seen:
             fail(f"phase 2's CRC cases missed {want}: {sorted(seen)}")
-    log(f"  crc32c: {n_crc} shapes x (2 seed conventions + extend) equal "
-        f"to the plain version; sampled rows equal the oracle; reached "
+    log(f"  crc32c: {n_crc} shapes x (2 seed conventions + extend) and "
+        f"{len(set_cases)} multi-set launches equal to the plain "
+        f"versions; sampled rows equal the oracle; reached "
         f"{sorted(seen)}")
     cases = [(B, L, 0, 0) for B in XXH_BATCHES for L in XXH_LENGTHS]
     cases += [(5, 4096, 1, 3), (3, 4099, 4, 4), (7, 100, 8, 0)]
@@ -751,59 +847,231 @@ def csum_bound(B: int, L: int, out_bytes: int, ops_per_byte: float
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def csum_table(torch, dev) -> dict:
+def csum_table(torch, dev, plain: bool = True, only_crc: bool = False
+               ) -> dict:
     """The checksum kernels at the main path's shapes: CRC32C over 256
     rows of 512 KiB (an (32, 8) batch's data rows, PERF.md's row), the
-    fused write's 352 rows (data and parity), the RMW delta's 64 data
-    and 96 parity rows of 4093 bytes (4093 apart: the byte-load path);
-    XXH32 and XXH64 over 262,144 rows of 4 KiB (phase 9's 1 GiB). For
-    each: ms per call (CUDA events around 20 calls), the kernel's device
-    ms per launch (a trace), host us per call, the plain version's ms,
-    and the bound. The bound's operations: CRC32C one table lookup and
-    one XOR a byte, XXH32 3 per 4 bytes, XXH64 3 per 8."""
+    fused write's 352 rows (data and parity) as one set and as its two
+    sets in one launch, the recovery program's launch (64 rebuilt rows
+    and 32 fold rows), the RMW delta's 64 data and 96 parity rows of
+    4093 bytes (4093 apart: the realigned loads) alone and as its one
+    launch, and few long rows (FEW_LONG_ROWS rows of 512 KiB and one
+    object's fused write, 8 + 3 rows: the cluster path's most launched
+    shapes); XXH32 and XXH64 over 262,144 rows of 4
+    KiB (phase 9's 1 GiB). For each: ms per call (CUDA events around 20
+    calls), the kernel's device ms per launch (a trace), host us per
+    call, the plain version's ms (with `plain`), and the bound. The
+    bound's operations: CRC32C one table lookup and one XOR a byte,
+    XXH32 3 per 4 bytes, XXH64 3 per 8. `only_crc` leaves out the XXH
+    rows; a checkout without `crc32c_sets` leaves out the multi-set
+    rows (so that `--crc-times` can time an older checkout)."""
     from ceph_tpu_torch.csum import kernels as C
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 21)
     sl = OBJECT_SIZE // K
-    rows = (("crc32c", "crc32c_256x512KiB", (BATCH * K, sl), 2.0),
-            ("crc32c", "crc32c_352x512KiB", (BATCH * (K + M), sl), 2.0),
-            ("crc32c", "crc32c_rmw_64x4093", (BATCH * 2, 4093), 2.0),
-            ("crc32c", "crc32c_rmw_96x4093", (BATCH * M, 4093), 2.0),
-            ("xxh32", "xxh32_262144x4KiB",
-             (CSUM_OBJECTS * OBJECT_SIZE // CSUM_BLOCK, CSUM_BLOCK), 0.75),
-            ("xxh64", "xxh64_262144x4KiB",
-             (CSUM_OBJECTS * OBJECT_SIZE // CSUM_BLOCK, CSUM_BLOCK), 0.375))
-    fns = {"crc32c": (lambda x: C.crc32c_blocks(x, 0xFFFFFFFF, 0),
-                      lambda x: C.crc32c_blocks_plain(x, 0xFFFFFFFF, 0)),
-           "xxh32": (C.xxh32_blocks, C.xxh32_blocks_plain),
-           "xxh64": (C.xxh64_blocks, C.xxh64_blocks_plain)}
+    crc = (("crc32c_256x512KiB", ((BATCH * K, sl),)),
+           ("crc32c_352x512KiB", ((BATCH * (K + M), sl),)),
+           ("crc32c_write_256+96x512KiB", ((BATCH * K, sl),
+                                           (BATCH * M, sl))),
+           ("crc32c_recover_64+32x512KiB", ((BATCH * 2, sl), (BATCH, sl))),
+           ("crc32c_rmw_64x4093", ((BATCH * 2, 4093),)),
+           ("crc32c_rmw_96x4093", ((BATCH * M, 4093),)),
+           ("crc32c_rmw_64+96x4093", ((BATCH * 2, 4093),
+                                      (BATCH * M, 4093))),
+           *((f"crc32c_{B}x512KiB", ((B, sl),)) for B in FEW_LONG_ROWS),
+           ("crc32c_write_8+3x512KiB", ((K, sl), (M, sl))))
+    rows = [("crc32c", label, sets, 2.0) for label, sets in crc
+            if len(sets) == 1 or hasattr(C, "crc32c_sets")]
+    if not only_crc:
+        n = CSUM_OBJECTS * OBJECT_SIZE // CSUM_BLOCK
+        rows += [("xxh32", "xxh32_262144x4KiB", ((n, CSUM_BLOCK),), 0.75),
+                 ("xxh64", "xxh64_262144x4KiB", ((n, CSUM_BLOCK),), 0.375)]
+
+    def crc_fns(xs):
+        if len(xs) == 1:
+            return (lambda: C.crc32c_blocks(xs[0], 0xFFFFFFFF, 0),
+                    lambda: C.crc32c_blocks_plain(xs[0], 0xFFFFFFFF, 0))
+        sets = [C.CrcRows(x, 0xFFFFFFFF, 0) for x in xs]
+        return (lambda: C.crc32c_sets(sets),
+                lambda: C.crc32c_sets_plain(sets))
     out = {}
-    for kernel, label, (B, L), ops in rows:
-        x = torch.randint(0, 256, (B, L), dtype=torch.uint8, device=dev,
-                          generator=gen)
-        fn, plain = fns[kernel]
-        if not torch.equal(fn(x), plain(x)):
+    for kernel, label, shapes, ops in rows:
+        xs = [torch.randint(0, 256, (B, L), dtype=torch.uint8, device=dev,
+                            generator=gen) for B, L in shapes]
+        if kernel == "crc32c":
+            fn, ref = crc_fns(xs)
+        else:
+            f, g = ((C.xxh32_blocks, C.xxh32_blocks_plain)
+                    if kernel == "xxh32" else
+                    (C.xxh64_blocks, C.xxh64_blocks_plain))
+            fn, ref = (lambda: f(xs[0])), (lambda: g(xs[0]))
+        if not torch.equal(fn(), ref()):
             fail(f"{label}: {kernel} disagrees with its plain version")
-        ms = cuda_ms(lambda: fn(x), calls=20)
-        dev_ms, dev_from = kernel_device_ms(lambda: fn(x),
-                                            f"{kernel}_kernel")
-        us = host_us(lambda: fn(x))
-        plain_ms = cuda_ms(lambda: plain(x), 1, 3)
-        bound, by = csum_bound(B, L, 16 if kernel == "xxh64" else 8, ops)
+        ms = cuda_ms(fn, calls=20)
+        dev_ms, dev_from = kernel_device_ms(fn, f"{kernel}_kernel")
+        us = host_us(fn)
+        plain_ms = cuda_ms(ref, 1, 3) if plain else None
+        nbytes = sum(B * L for B, L in shapes)
+        bounds = [csum_bound(B, L, 16 if kernel == "xxh64" else 8, ops)
+                  for B, L in shapes]
+        bound = sum(b for b, _ in bounds)
+        by = "bytes" if all(w == "bytes" for _, w in bounds) \
+            else "operations"
         out[label] = {"ms": ms, "device_ms": dev_ms,
                       "device_ms_from": dev_from, "host_us": us,
                       "plain_ms": plain_ms, "bound_ms": bound,
-                      "bound_by": by, "shape": [B, L],
+                      "bound_by": by, "shape": [list(x) for x in shapes]
+                      if len(shapes) > 1 else list(shapes[0]),
                       "device_share_of_bound": bound / dev_ms,
-                      "gbps": B * L / ms / 1e6}
-        log(f"  {kernel} ({B}, {L}): equal to plain; {ms:.5f} ms per call "
-            f"({B * L / ms / 1e6:.2f} GB/s), {dev_ms:.5f} ms on the "
-            f"device, {us:.1f} us of host time per call; plain "
-            f"{plain_ms:.4f} ms; bound {bound:.6f} ms ({by})")
-        del x
+                      "gbps": nbytes / ms / 1e6}
+        log(f"  {label}: equal to plain; {ms:.5f} ms per call "
+            f"({nbytes / ms / 1e6:.2f} GB/s), {dev_ms:.5f} ms on the "
+            f"device ({bound / dev_ms:.0%} of the bound), {us:.1f} us of "
+            f"host time per call; plain "
+            f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}"
+            f"; bound {bound:.6f} ms ({by})")
+        del xs
     torch.cuda.empty_cache()
     return out
+
+
+def sass_loops(lib) -> dict:
+    """The loops of each kernel in a built library, from `cuobjdump
+    -sass` beside the nvcc that built it: for every backward branch that
+    holds loads (LDS or LDG) and no shared-memory store, the
+    instructions from its target to the branch, their count, the LDS
+    and LDG among them and the bytes an iteration consumes (one 32-bit
+    LDS, a table lookup, a byte where the loop looks tables up, else 16
+    a 16-byte LDG or LDS), by function name. Empty where cuobjdump is
+    missing or fails."""
+    import re
+
+    from ceph_tpu_torch.utils import nvcc
+    tool = Path(nvcc.find()).with_name("cuobjdump")
+    try:
+        text = subprocess.run([str(tool), "-sass", str(lib)],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+    except (OSError, subprocess.SubprocessError) as exc:
+        log(f"  cuobjdump failed: {exc}")
+        return {}
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None:
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if m:
+                funcs[name].append((None, m.group(1)))
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                funcs[name].append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for name, items in funcs.items():
+        labels, ins, pending = {}, [], []
+        for addr, txt in items:
+            if addr is None:
+                pending.append(txt)
+                continue
+            labels.update({lb: addr for lb in pending})
+            pending = []
+            ins.append((addr, re.sub(r"^@!?U?P\w+\s+", "", txt)))
+        loops = []
+        for addr, txt in ins:
+            m = re.match(r"BRA\S*\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))",
+                         txt)
+            if not m:
+                continue
+            tgt = labels.get(m.group(1)) if m.group(1) \
+                else int(m.group(2), 16)
+            if tgt is None or tgt > addr:
+                continue
+            ops = [t.split()[0] for a, t in ins if tgt <= a <= addr]
+            lds = sum(o.startswith("LDS") for o in ops)
+            ldg = sum(o.startswith("LDG") for o in ops)
+            if lds + ldg == 0 or any(o.startswith("STS") for o in ops):
+                continue
+            lookups = sum(o.startswith("LDS") and "128" not in o
+                          for o in ops)
+            nbytes = lookups or 16 * sum(
+                o.startswith(("LDG", "LDS")) and "128" in o for o in ops)
+            loops.append({"instructions": len(ops), "lds": lds, "ldg": ldg,
+                          "lookups": lookups,
+                          "bytes": nbytes,
+                          "per_byte": len(ops) / nbytes if nbytes else None})
+        if loops:
+            out[name] = loops
+    return out
+
+
+MICRO_PARTS = ("loads only, each lane its own", "loads only, coalesced",
+               "shared tables, random data",
+               "lane-private tables, random data",
+               "lane-private tables, each lane's own loads",
+               "loads only, staged as the kernel stages them")
+
+
+def crc_microbench(torch, dev) -> dict:
+    """The CRC kernel's parts on the card (tools/crc_microbench.cu) over
+    256 rows of 512 KiB, the items and segments `plan_for` gives them:
+    each part's ms per launch (CUDA events around 20 launches), its GB/s
+    and its hottest loop's instructions a byte (`sass_loops`), beside
+    the whole kernel's (crc32c_blocks on the same rows) and the bytes
+    bound."""
+    import ctypes
+
+    from ceph_tpu_torch.csum import kernels as C
+    from ceph_tpu_torch.utils import nvcc
+
+    src = Path(__file__).resolve().parent / "tools" / "crc_microbench.cu"
+    path = nvcc.build(src)
+    lib = ctypes.CDLL(str(path))
+    P = ctypes.c_void_p
+    lib.crc_probe.argtypes = [ctypes.c_int, P, ctypes.c_longlong,
+                              ctypes.c_int, P, ctypes.c_int, P]
+    lib.crc_probe.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    B, L = BATCH * K, OBJECT_SIZE // K
+    plan = C.make_plan(L, 512, 32)        # 32 units a lane, as plan_for
+    items = B * plan.segments // 32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 22)
+    data = torch.randint(0, 256, (B * L,), dtype=torch.uint8, device=dev,
+                         generator=gen)
+    grid = min(sms, items)
+    out = torch.empty(grid * 1024, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(mode):
+        rc = lib.crc_probe(mode, data.data_ptr(), items, plan.seg,
+                           out.data_ptr(), grid, stream)
+        if rc:
+            fail(f"crc_probe mode {mode}: cudaError {rc}")
+    sass = sass_loops(path)
+    sass.update(sass_loops(C.build()))
+    bound, _ = csum_bound(B, L, 8, 2.0)
+    res = {"rows": [B, L], "segments": plan.segments, "seg_units": plan.seg,
+           "items": items, "grid": grid, "bound_ms": bound}
+    for mode, part in enumerate(MICRO_PARTS):
+        ms = cuda_ms(lambda: run(mode), calls=20)
+        loops = [v for k, v in sass.items() if f"probeILi{mode}E" in k]
+        res[part] = {"ms": ms, "gbps": B * L / ms / 1e6,
+                     "sass_loops": loops[0] if loops else "not measured"}
+        log(f"  microbench {part}: {ms:.5f} ms ({B * L / ms / 1e6:.1f} "
+            f"GB/s); loops {res[part]['sass_loops']}")
+    rows = data.view(B, L)
+    ms = cuda_ms(lambda: C.crc32c_blocks(rows, 0xFFFFFFFF, 0), calls=20)
+    loops = [v for k, v in sass.items() if "crc32c_kernel" in k]
+    res["the kernel"] = {"ms": ms, "gbps": B * L / ms / 1e6,
+                         "sass_loops": loops or "not measured"}
+    log(f"  microbench the kernel: {ms:.5f} ms; bound {bound:.5f} ms; "
+        f"loops {res['the kernel']['sass_loops']}")
+    del data, out
+    torch.cuda.empty_cache()
+    return res
 
 
 def measure(torch, dev, ctx) -> dict:
@@ -811,6 +1079,7 @@ def measure(torch, dev, ctx) -> dict:
 
     from ceph_tpu_torch.csum.kernels import crc32c_blocks
     from ceph_tpu_torch.ops import gf_kernel as G
+    from ceph_tpu_torch.osd.ecbackend import _fused_delta_fn
 
     coder, sl = ctx["coder"], ctx["sl"]
     out, mats = gf_table(torch, dev)
@@ -831,6 +1100,25 @@ def measure(torch, dev, ctx) -> dict:
     t_dec = cuda_ms(lambda: ctx["dec_fn"](data))
     expfold = torch.zeros(BATCH, dtype=torch.int64, device=dev)
     t_rec = cuda_ms(lambda: ctx["recover"](data, expfold))
+    # the RMW delta program of phase 5's 4093-byte windows (2 of k rows)
+    delta = _fused_delta_fn(
+        np.ascontiguousarray(coder.matrix[:, :2]).tobytes(), M, 2,
+        coder.impl, 4093, BATCH, coder.device)
+    d = torch.randint(0, 256, (BATCH, 2, 4093), dtype=torch.uint8,
+                      device=dev, generator=gen)
+    t_delta = cuda_ms(lambda: delta(d))
+    # one CRC launch a call of each fused program
+    for label, call in (("the fused write", lambda: ctx["write"](data)),
+                        ("the fused delta", lambda: delta(d)),
+                        ("the recovery program",
+                         lambda: ctx["recover"](data, expfold))):
+        n0 = csum_counts()["crc32c"]
+        call()
+        if csum_counts()["crc32c"] - n0 != 1:
+            fail(f"one call of {label} launched the CRC32C kernel "
+                 f"{csum_counts()['crc32c'] - n0} times, not once")
+    log("  the fused write, the fused delta and the recovery program "
+        "each launch the CRC32C kernel once a call")
     rows = data.reshape(BATCH * K, sl)
     t_crc = cuda_ms(lambda: crc32c_blocks(rows, init=0xFFFFFFFF, xorout=0))
     e2e = {"encode_gbps": in_bytes / t_enc / 1e6,
@@ -839,6 +1127,7 @@ def measure(torch, dev, ctx) -> dict:
            "recovery_objects_per_s": BATCH / t_rec * 1e3,
            "encode_ms": t_enc, "fused_write_ms": t_write,
            "decode_ms": t_dec, "recover_ms": t_rec,
+           "fused_delta_ms": t_delta,
            "crc32c_gbps": BATCH * K * sl / t_crc / 1e6,
            "crc32c_ms_per_8_rows_of_batch": t_crc}
     log(f"  encode_chunks {e2e['encode_gbps']:.2f} GB/s "
@@ -846,7 +1135,8 @@ def measure(torch, dev, ctx) -> dict:
         f"CRCs) {e2e['fused_write_gbps']:.2f} GB/s ({t_write:.4f} ms)")
     log(f"  decode 2-loss {e2e['decode_gbps']:.2f} GB/s ({t_dec:.4f} ms); "
         f"fused recovery (decode + rebuilt CRCs + fold verify) "
-        f"{e2e['recovery_objects_per_s']:.1f} objects/s ({t_rec:.4f} ms)")
+        f"{e2e['recovery_objects_per_s']:.1f} objects/s ({t_rec:.4f} ms); "
+        f"fused RMW delta ({BATCH}, 2, 4093) {t_delta:.4f} ms")
     log(f"  crc32c_blocks over {BATCH * K} rows of {sl} B: {t_crc:.4f} ms "
         f"({e2e['crc32c_gbps']:.2f} GB/s)")
     out["e2e"] = e2e
@@ -984,10 +1274,11 @@ def backend_path(torch, dev) -> dict:
     full = _fused_write_fn(be.coder.matrix.tobytes(), M, K, be.coder.impl,
                            sl, BATCH, be.device)
     ref0, crc0 = gf_counts(G), csum_counts()    # the reference is not
-    parity, crcs = full(torch.from_numpy(         # the path
+    shapes0 = crc_shapes()                      # the path
+    parity, crcs = full(torch.from_numpy(
         be.sinfo.object_to_shards(data)).to(dev))
     gf_set(G, ref0)
-    csum_set(crc0)
+    csum_set(crc0, shapes0)
     parity, crcs = parity.cpu().numpy(), crcs.cpu().numpy()
     for bi, nm in enumerate(wave):
         for s in range(n):
@@ -1734,6 +2025,7 @@ def bluestore_path(torch, dev) -> dict:
     tiled = make_tiled_encoder(rs, tile=TILED_TILE)(x)
     counts = {"csum": csum_counts(), "gf": gf_counts(G)}
     out["launches"] = dict(counts["csum"])
+    CRC_BY_SHAPE["phase 9"] = dict(crc_shapes())
     out["gf_apply_launches"] = counts["gf"][0]
     log(f"  phase 9's launches: {dict(counts['csum'])}, gf_apply "
         f"{counts['gf'][0]}")
@@ -1831,6 +2123,16 @@ def main() -> None:
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    if sys.argv[1:] == ["--crc-times"]:
+        from ceph_tpu_torch.csum import kernels as C
+        t0 = time.perf_counter()
+        C.build()
+        log(f"phase 1: built csum.cu in {time.perf_counter() - t0:.1f} s")
+        rows = csum_table(torch, dev, plain=False, only_crc=True)
+        micro = crc_microbench(torch, dev)
+        log(card_line())
+        log(json.dumps({"crc_times": rows, "microbench": micro}))
+        return
     if sys.argv[1:] == ["--gf-times"]:
         t0 = time.perf_counter()
         G.build()
@@ -1840,7 +2142,8 @@ def main() -> None:
         log(json.dumps({"gf_times": rows}))
         return
     if sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]}: none, or --gf-times")
+        fail(f"unknown arguments {sys.argv[1:]}: none, --gf-times or "
+             f"--crc-times")
     build_all()
 
     log("phase 2: kernels against their plain versions")
@@ -1940,8 +2243,8 @@ def main() -> None:
                   "9": by9["crc32c"]}
     for name, replaces, main_row, by_phase, extra in (
             ("crc32c", "ceph_tpu/csum/kernels.py:113", "crc32c_256x512KiB",
-             crc_phases, ("crc32c_352x512KiB", "crc32c_rmw_64x4093",
-                          "crc32c_rmw_96x4093")),
+             crc_phases, tuple(k for k in csum if k.startswith("crc32c")
+                               and k != "crc32c_256x512KiB")),
             ("xxh32", "ceph_tpu/csum/kernels.py:245", "xxh32_262144x4KiB",
              {"9": by9["xxh32"]}, ()),
             ("xxh64", "ceph_tpu/csum/kernels.py:400", "xxh64_262144x4KiB",
@@ -1960,6 +2263,10 @@ def main() -> None:
             "device_ms": row["device_ms"],
             "device_ms_from": row["device_ms_from"],
             "host_us": row["host_us"], **{key: csum[key] for key in extra}})
+        if name == "crc32c":
+            kernels[-1]["launches_by_shape"] = {
+                label.split()[-1]: shapes
+                for label, shapes in CRC_BY_SHAPE.items()}
     log("e2e " + json.dumps(times["e2e"]))
     log(card_line())
     log(json.dumps({"kernels": kernels}))

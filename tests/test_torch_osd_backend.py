@@ -614,3 +614,68 @@ def test_carried_state_codecs_twin_writes_port_recovers(profile, cs, lost):
     got = tb.read_objects(list(objs))
     for name, data in objs.items():
         np.testing.assert_array_equal(got[name], data)
+
+
+@pytest.mark.parametrize("verify", [True, False])
+def test_recover_program_crcs_rebuilt_and_shorter_fold(verify):
+    # the recovery program's one CRC call: rebuilt rows of sl bytes and,
+    # with verify, the helper fold of the staged rl < sl bytes (a Clay
+    # range plan's shape), equal to separate calls and to the oracle
+    from ceph_tpu_torch.csum.kernels import crc32c_blocks
+
+    rng = np.random.default_rng(31)
+    B, H, rl, sl = 3, 4, 1536, 3072
+    stack = torch.from_numpy(rng.integers(0, 256, (B, H, rl), np.uint8))
+    rebuilt = torch.from_numpy(rng.integers(0, 256, (B, 2, sl), np.uint8))
+    calls = []
+
+    def sets(rows):
+        calls.append([tuple(r.blocks.shape) for r in rows])
+        return crc_sets(rows)
+    crc_sets, T.crc32c_sets = T.crc32c_sets, sets
+    try:
+        fold = np.bitwise_xor.reduce(stack.numpy(), axis=1)
+        exp = np.array([ceph_crc32c(0xFFFFFFFF, f) for f in fold], np.int64)
+        exp[1] ^= 1                              # one fold check fails
+        prog = T._build_recover_program(lambda s: rebuilt, verify, False)
+        got, rcrc, ok = prog(stack, exp)
+    finally:
+        T.crc32c_sets = crc_sets
+    assert got is rebuilt
+    assert calls == ([[(2 * B, sl), (B, rl)]] if verify else [[(2 * B, sl)]])
+    assert torch.equal(rcrc, crc32c_blocks(rebuilt.reshape(2 * B, sl),
+                                           0xFFFFFFFF, 0).reshape(B, 2))
+    assert rcrc[2, 1].item() == ceph_crc32c(0xFFFFFFFF,
+                                            rebuilt[2, 1].numpy())
+    assert ok.tolist() == ([True, False, True] if verify else [True] * B)
+
+
+@pytest.mark.parametrize("program", ["write", "delta"])
+def test_fused_write_and_delta_crc_once(program, monkeypatch):
+    # the fused write's (seed -1) and the RMW delta's (seed 0, 4093-byte
+    # rows) CRCs of data and parity rows: one crc32c_sets call a call,
+    # the (bucket, k + m) order of separate calls
+    from ceph_tpu_torch.csum.kernels import crc32c_blocks
+
+    coder = TR.factory(f"{RS} k=4 m=2", device="cpu")
+    k, m, bucket = 4, 2, 3
+    if program == "write":
+        L, seed, t, mat = 4096, 0xFFFFFFFF, k, coder.matrix
+        fn = T._fused_write_fn(mat.tobytes(), m, k, coder.impl, L, bucket,
+                               torch.device("cpu"))
+    else:
+        L, seed, t = 4093, 0, 2
+        mat = np.ascontiguousarray(coder.matrix[:, :t])
+        fn = T._fused_delta_fn(mat.tobytes(), m, t, coder.impl, L, bucket,
+                               torch.device("cpu"))
+    calls = []
+    real = T.crc32c_sets
+    monkeypatch.setattr(T, "crc32c_sets",
+                        lambda rows: calls.append(len(rows)) or real(rows))
+    d = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (bucket, t, L), np.uint8))
+    parity, crcs = fn(d)
+    assert calls == [2]
+    full = torch.cat([d, parity], dim=1).reshape(bucket * (t + m), L)
+    assert torch.equal(crcs, crc32c_blocks(full, seed, 0).reshape(
+        bucket, t + m))
