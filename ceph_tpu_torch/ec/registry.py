@@ -33,7 +33,10 @@ def plugins() -> list[str]:
 
 def _ensure_loaded() -> None:
     # "preload": import the bundled plugin modules so they self-register;
-    # a broken plugin surfaces as its import error
+    # a broken plugin surfaces as its import error. The host-only
+    # `native` plugin is bundled too (the twin registers it only once
+    # ceph_tpu.native is imported); importing it builds nothing.
+    from .. import native as _native  # noqa: F401
     from . import clay as _clay  # noqa: F401
     from . import lrc as _lrc  # noqa: F401
     from . import rs as _rs  # noqa: F401

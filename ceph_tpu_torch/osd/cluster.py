@@ -21,7 +21,9 @@ Every encode, decode, CRC and batched placement runs on the cluster's
 device: `device=None` is the CUDA device and raises without one; the
 CPU is used only when asked for (`device="cpu"`). The device reaches
 the OSDMap's mapper, every PG backend, and the coder that sizes the
-pool. TinStore (`store="tin"`) is not ported yet and is refused.
+pool. `store="tin"` keeps each OSD's shards in a persistent TinStore
+under `store_dir` (a new temporary directory when None): kill_osd
+drops its RAM state, revive_osd remounts it from its WAL and segments.
 """
 
 from __future__ import annotations
@@ -82,18 +84,41 @@ class SimCluster:
         # really recovers from WAL+checkpoint — measured, not assumed)
         if store not in ("mem", "tin"):
             raise ValueError(f"store={store!r} not in ('mem', 'tin')")
-        if store == "tin":
-            # a refusal, not a fallback: nothing runs on MemStore instead
-            raise NotImplementedError(
-                "store='tin': TinStore is not ported yet (ROADMAP queue 1, "
-                "TinStore after kv/tindb); use store='mem'")
         if store_compression is not None:
-            raise ValueError("store_compression requires "
-                             "store='tin' (MemStore never "
-                             "compresses — a silent no-op would "
-                             "fake a compressed-path test)")
+            from .tinstore import TinStore
+            if store != "tin":
+                raise ValueError("store_compression requires "
+                                 "store='tin' (MemStore never "
+                                 "compresses — a silent no-op would "
+                                 "fake a compressed-path test)")
+            if store_compression not in TinStore.COMPRESSION_ALGS:
+                raise ValueError(
+                    f"unknown store_compression "
+                    f"{store_compression!r}; use one of "
+                    f"{TinStore.COMPRESSION_ALGS}")
         self.store_kind = store
         self.store_dir = store_dir
+        if store == "tin":
+            import os as _os
+            import tempfile
+            from .tinstore import TinStore
+            if store_dir is None:
+                self.store_dir = tempfile.mkdtemp(prefix="tinstore-")
+            # verify_reads off INSIDE the cluster: shard integrity is
+            # the backend's hinfo CRC layer (verify-on-read + EIO
+            # reconstruct), which must see rotten bytes to repair them;
+            # TinStore still verifies every object at mount/fsck
+            # cache_bytes is deliberately TINY: sim datasets are small,
+            # and a cache several times smaller than the working set
+            # keeps the chaos/recovery suites exercising the eviction +
+            # device-read path, not an accidental RAM mirror
+            self.cluster.store_factory = lambda o: TinStore(
+                _os.path.join(self.store_dir, f"osd.{o}"),
+                verify_reads=False, cache_bytes=32 << 10,
+                compression=store_compression,
+                # sim-scale blobs are far below the production 4 KiB
+                # floor; compress anything that plausibly shrinks
+                compression_min_blob=64)
         self.profile = profile
         # pool type switch (ref: pg_pool_t TYPE_REPLICATED vs
         # TYPE_ERASURE; PrimaryLogPG drives either through PGBackend):

@@ -5,8 +5,9 @@
 
 Phases, each of which fails loudly (exit code 1, no result line):
   1. print the card's name and power limit; build every hand kernel
-     from the sources in the checkout (gf_apply.cu and csum.cu, one
-     nvcc each, started together);
+     from the sources in the checkout (gf_apply.cu, csum.cu and
+     placement.cu, one nvcc each) and the native host library
+     (native/ec_tpu.cpp, g++, always anew), all started together;
   2. hold each kernel bit-exact against its plain PyTorch version on
      the card, at the main path's shapes and at odd ones (CRC32C at
      L in {0, 1, 7, 8, 9, 63, 64, 65, 4093, 4096, 524288} and B in {1,
@@ -16,7 +17,10 @@ Phases, each of which fails loudly (exit code 1, no result line):
      rows, and crc32c_sets launches of 2, 3 and 4 sets of mixed L and
      seeds; XXH32 and XXH64 at 13 lengths and seeds 0 and 42,
      misaligned row views included; a sample of rows against the
-     reference oracle);
+     reference oracle; the placement scorer at N of 64, 129, 1000 and
+     262,144, U of 1, 7, 64, 512 and 700, 2S of 6, 22 and 32, topk 1
+     to 8, all-illegal blocks and integer deviations (ties everywhere),
+     indices and float32 scores bit for bit);
   3. drive the main path at full width: RS k=8 m=3 over 1024 objects
      of 4 MiB (data made on the card from a seeded torch.Generator),
      in batches of 32: fused write (parity + 11 hinfo CRCs per object),
@@ -78,9 +82,35 @@ Phases, each of which fails loudly (exit code 1, no result line):
      held against one apply of the whole stripe on the card, its
      host-to-host GB/s beside a pinned host-to-device copy of the same
      bytes; make_tiled_encoder at (32, 8, 4 MiB) with a 1 MiB tile
-     against the one-shot encode.
-Phases 3, 5, 7, 8 and 9 print the CRC32C kernel's launches and fail if
-there are none; phase 9 also needs XXH32, XXH64 and gf_apply launches.
+     against the one-shot encode;
+ 10. the mgr's upmap balancer at 10k OSDs / 1M PGs (BALANCER_10K.json's
+     configuration: tools/scale_sim.py's heavy-half map, 10,000 OSDs,
+     8 a host, 16 hosts a rack, replicated size 3 over hosts, pg_num
+     1,048,576, the first half of the devices at twice the CRUSH
+     weight): the pool's raw mapping through the VectorMapper in 16
+     launches of 65,536 lanes, then batch_calc_pg_upmaps (max_src and
+     max_dst 512, a budget of 65,536 moves) under torch.profiler, its
+     scorer on the card; its moves, rounds, candidates, spreads and
+     the sha256 digests of its moves and proposed upmaps must be the
+     JAX package's (BALANCER_10K.json), the budget must hold, 2,000
+     sampled PGs' up sets after the upmaps land must be
+     pg_to_up_acting_osds', and the first and the last scorer launch
+     must equal the plain version on the card; prints the mapping time,
+     the scorer's device ms a launch, its launches and bound, the host
+     greedy's time and the device's idle share;
+ 11. phase 7's scenario over persistent TinStores in a temporary
+     directory (removed afterwards): the revive is a real remount from
+     the OSD's WAL, then a bare remount of the fullest store, a clean
+     deep scrub of every PG and the reads once more; then 32
+     compressible 4 MiB objects (a seeded 64 KiB block repeated)
+     through zlib-compressed TinStores, which must store fewer bytes
+     than they are given and read back exact after a remount. It
+     fails unless the native library built in phase 1 serves TinDB's
+     CRC32C on SSE4.2. Host-bound by design (a 32 KiB cache: every
+     read a pread).
+Phases 3, 5, 7, 8, 9 and 11 print the CRC32C kernel's launches and fail
+if there are none; phase 9 also needs XXH32, XXH64 and gf_apply
+launches, phase 10 a scorer launch a round.
 Phase 4 also times the checksum kernels at the main path's shapes
 (CRC32C over 256 and 352 rows of 512 KiB, the fused write's and the
 recovery program's launches of two row sets, the RMW delta's 4093-byte
@@ -104,8 +134,8 @@ ragged RMW delta, LRC's global layer and local repair, Clay's encode,
 repair and two-loss decode and SHEC's encode at the shapes of phase
 8): ms per call, device ms per launch from a trace that must show
 every launch, host microseconds per call, beside its plain version and
-impl=mxu. Phases 3, 5, 7 and 8 print gf_apply's launches by (k, m, L,
-vec).
+impl=mxu. Phases 3, 5, 7, 8 and 11 print gf_apply's launches by (k,
+m, L, vec).
 
     python3 chip_smoke.py --gf-times
 
@@ -162,6 +192,9 @@ CRUSH_DIGEST = 12828
 # pgcalc: 100 PGs per OSD x 10,000 OSDs / size 11 = 90,909, rounded up
 # to a power of two
 CRUSH_PG_NUM = 131072
+# phase 10: the balancer's configuration and the JAX package's result
+# (tools/balancer_10k.py), in the checkout beside this script
+BALANCER_REF = "BALANCER_10K.json"
 # phase 7: 12 hosts for k+m = 11 shards on a host failure domain
 CLUSTER_OSDS = 48
 CLUSTER_PER_HOST = 4
@@ -193,6 +226,10 @@ FEW_LONG_ROWS = (1, 8, 16)   # phase 4's few-long-row CRC rows
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 FP32_OPS_PER_S = 67e12
+# int32 operations: 64 int32 lanes a SM, half the float32 lanes behind
+# the 67 TFLOP/s (132 SMs x 128 lanes x 2 for a fused multiply-add x
+# 1.98 GHz): 132 x 64 x 1.98e9
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -673,6 +710,74 @@ def check_csum_kernels(torch, dev) -> dict:
                     fail(f"xxhash {name}: row {i} differs from the oracle")
     log(f"  xxh32 / xxh64: {len(cases)} shapes x seeds 0, 42 equal to the "
         f"plain versions; sampled rows equal the oracle")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst}
+
+
+def score_inputs(torch, dev, rng, N: int, S2: int, U: int, n_osds: int,
+                 ties: bool, illegal: bool = False) -> tuple:
+    """A seeded candidate block for the placement scorer on `dev`:
+    members with CRUSH_ITEM_NONE holes and the source among them,
+    domains 8 devices wide with some devices outside every bucket, dev
+    integer-valued when `ties` (ties everywhere), and with `illegal`
+    every row's source the least loaded device (every gain <= 0)."""
+    import numpy as np
+    dom = (np.arange(n_osds) // 8 - 1000).astype(np.int32)
+    dom[rng.choice(n_osds, 7, replace=False)] = -(10 ** 7) - np.arange(7)
+    dev_ = (rng.integers(-20, 21, n_osds).astype(np.float64) if ties
+            else rng.normal(0, 30, n_osds))
+    dsts = rng.choice(n_osds, U, replace=False).astype(np.int32)
+    members = rng.integers(0, n_osds, (N, S2)).astype(np.int32)
+    members[rng.random((N, S2)) < 0.1] = 0x7FFFFFFF
+    src = rng.integers(0, n_osds, N).astype(np.int32)
+    if illegal:
+        src[:] = int(np.argmin(dev_))
+    members[:, 0] = src
+    if N > 16 and not illegal:
+        members[-8:] = 0x7FFFFFFF            # pow2 padding rows
+        src[-8:] = 0
+    return tuple(torch.from_numpy(a).to(dev) for a in
+                 (members, src, dsts, dev_.astype(np.float32), dom))
+
+
+def check_score_kernel(torch, dev) -> dict:
+    """Phase 2 for placement.cu: best indices and float32 scores bit for
+    bit against score_candidates_plain on the card, at N not a multiple
+    of the block (1000, 129), N = 64 (the pad minimum) and N = 262,144
+    (phase 10's), U = 1, 7, 512 and 700 (two staged chunks), 2S = 6, 22
+    and 32, topk 1 to 8, rows where every target is illegal, and
+    integer-valued deviations (ties everywhere)."""
+    import numpy as np
+
+    from ceph_tpu_torch.mgr import placement as P
+
+    rng = np.random.default_rng(SEED + 21)
+    cases = [(1000, 6, 512, 8, True, False), (129, 6, 7, 7, True, False),
+             (64, 6, 1, 1, True, False), (64, 22, 512, 8, False, False),
+             (1000, 32, 700, 8, True, False), (1000, 22, 64, 3, True, False),
+             (129, 32, 512, 8, True, True), (1000, 6, 512, 5, False, True),
+             (262144, 6, 512, 8, True, False)]
+    worst = 0.0
+    n0 = P.launches
+    for N, S2, U, topk, ties, illegal in cases:
+        inp = score_inputs(torch, dev, rng, N, S2, U, 10_000, ties, illegal)
+        best, score = P.score_candidates(*inp, topk)
+        pb, ps = P.score_candidates_plain(*inp, topk)
+        torch.cuda.synchronize()
+        name = f"score_candidates N={N} 2S={S2} U={U} topk={topk}"
+        if best.shape != (N, topk) or not torch.equal(best, pb) or \
+                not torch.equal(score.view(torch.int32),
+                                ps.view(torch.int32)):
+            fail(f"{name}: the kernel disagrees with its plain version")
+        finite = torch.isfinite(ps)
+        if illegal and bool(finite.any()):
+            fail(f"{name}: an all-illegal block scored a legal target")
+        if bool(finite.any()):
+            worst = max(worst, float((score - ps)[finite].abs().max()))
+    if P.launches - n0 != len(cases):
+        fail("phase 2's scorer cases did not all launch the kernel")
+    log(f"  score_candidates: {len(cases)} shapes bit-exact against the "
+        f"plain version (indices, scores, -inf slots, tie order)")
     torch.cuda.empty_cache()
     return {"max_abs_err": worst}
 
@@ -1603,17 +1708,21 @@ def placement_path(torch, dev) -> dict:
 
 # ------------------------------------------------------------- phase 7
 
-def cluster_path(torch, dev) -> dict:
+def cluster_path(torch, dev, **store) -> dict:
     """SimCluster's failure -> remap -> recovery path over ECBackend on
     the card, at the BASELINE geometry; every read is held bit for bit
-    against the bytes written."""
+    against the bytes written. `store` goes to SimCluster: with
+    store="tin" the revive is a remount from the OSD's WAL, and the
+    phase ends with a bare remount of one store, a clean deep scrub of
+    every PG and the reads once more."""
     from torch.profiler import ProfilerActivity, profile
 
     from ceph_tpu_torch.osd.cluster import SimCluster
 
     c = SimCluster(n_osds=CLUSTER_OSDS, osds_per_host=CLUSTER_PER_HOST,
                    pg_num=CLUSTER_PGS, profile=PROFILE,
-                   chunk_size=OBJECT_SIZE // K, **entry_device(dev))
+                   chunk_size=OBJECT_SIZE // K, **store,
+                   **entry_device(dev))
     be = c.pgs[0]
     if c.device.type != dev.type or be.device != c.device \
             or c.osdmap.device != c.device or be.coder.impl != "pallas" \
@@ -1717,6 +1826,30 @@ def cluster_path(torch, dev) -> dict:
         f"{out['replay_s']:.3f} s")
     verify("after the log replay")
     out["objects"] = len(objs)
+    if c.store_kind != "tin":
+        return out
+    # a bare remount of the store that holds the most objects: RAM state
+    # dropped, the mirror rebuilt from the WAL and the KV segments
+    osd = max(c.cluster.stores,
+              key=lambda o: c.cluster.stores[o].used_bytes())
+    st = c.cluster.stores[osd]
+    n_obj = sum(len(st.list_objects(cid)) for cid in st.list_collections())
+    st.crash()
+    t0 = time.perf_counter()
+    st.remount()
+    out["remount_s"] = time.perf_counter() - t0
+    out["remount_objects"] = n_obj
+    log(f"  osd.{osd}'s TinStore ({n_obj} objects) remounted from its WAL "
+        f"and segments in {out['remount_s']:.4f} s")
+    t0 = time.perf_counter()
+    for ps, pg in c.pgs.items():
+        rep = pg.deep_scrub(dead_osds=c._dead_osds())
+        if rep["inconsistent"]:
+            fail(f"deep scrub of PG {ps}: {rep['inconsistent']}")
+    out["deep_scrub_s"] = time.perf_counter() - t0
+    log(f"  deep scrub of {len(c.pgs)} PGs: clean, "
+        f"{out['deep_scrub_s']:.3f} s")
+    verify("after the remount and the deep scrub")
     return out
 
 
@@ -2088,24 +2221,287 @@ def bluestore_path(torch, dev) -> dict:
     return out
 
 
-def build_all() -> None:
-    """Phase 1: build every kernel source, one nvcc each, all started
-    together; print each one's build time."""
+# ------------------------------------------------------------ phase 10
+
+def score_bound(N: int, S2: int, U: int, topk: int, n_osds: int
+                ) -> tuple[float, str]:
+    """Least time (ms) the card could take for one scorer launch: the
+    larger of the bytes (members, sources, the target list, dev and dom
+    read once; the (index, score) pairs written once) through HBM and
+    the N*U*2*2S int32 compares at the int32 rate."""
+    t_bytes = (N * S2 * 4 + N * 4 + U * 4 + n_osds * 8
+               + N * topk * 8) / HBM_BYTES_PER_S
+    t_ops = N * U * 2 * S2 / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def heavy_half_map(c: dict):
+    """tools/scale_sim.py's build_cluster(heavy_half=True) on the port's
+    crush.map: the first half of the devices at twice the CRUSH weight,
+    the replicated host rule 0."""
+    from ceph_tpu_torch.crush.map import build_hierarchy, replicated_rule
+    m = build_hierarchy(c["osds"], c["osds_per_host"], c["hosts_per_rack"])
+    half = c["osds"] // 2
+    for b in m.buckets.values():
+        if b.type_id == 1:
+            for i, it in enumerate(b.items):
+                if it < half:
+                    b.weights[i] = 2 * 0x10000
+    for lvl in (2, 3):
+        for b in m.buckets.values():
+            if b.type_id == lvl:
+                b.weights = [m.buckets[ch].weight for ch in b.items]
+    m._packed = None
+    replicated_rule(m, 0, choose_type=1, firstn=True)
+    return m
+
+
+BALANCER_KEYS = ("moves", "rounds", "candidates_scored", "max_dev_before",
+                 "max_dev_after", "spread_before", "spread_after",
+                 "budget_used", "converged")
+
+
+def balancer_path(torch, dev) -> dict:
+    """The mgr's upmap balancer at 10k OSDs / 1M PGs on the card
+    (BALANCER_10K.json's configuration): the pool's raw mapping, then
+    batch_calc_pg_upmaps traced, np.argsort pinned to kind="stable" as
+    the reference was made (tools/balancer_10k.py's `stable_argsort`:
+    the greedy sorts integer-valued deviations, and numpy's default
+    argsort orders ties by the CPU it runs on); fails unless its result
+    and digests are the JAX package's, the budget holds, 2,000 sampled PGs' up sets
+    after the upmaps land are pg_to_up_acting_osds', and the first and
+    the last scorer launch equal the plain version on the card."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceph_tpu_torch.mgr import placement as P
+    from ceph_tpu_torch.osd.osdmap import OSDMap, PGPool
+    # the reference's digests and argsort pin, from the tool that wrote
+    # it (numpy only at import; it loads the JAX package in main alone)
+    from tools.balancer_10k import balance_digests, stable_argsort
+
+    ref = json.loads((Path(__file__).resolve().parent / BALANCER_REF)
+                     .read_text())
+    c = ref["config"]
+    om = OSDMap(heavy_half_map(c), **entry_device(dev))
+    om.add_pool(PGPool(1, pg_num=c["pg_num"], size=c["size"],
+                       min_size=max(1, c["size"] - 1), crush_rule=0))
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = P.chunked_pgs_to_raw(om, 1, c["chunk"])
+    torch.cuda.synchronize()
+    out["map_s"] = time.perf_counter() - t0
+    log(f"  raw mapping of {c['pg_num']} PGs x {c['size']} over "
+        f"{c['osds']} OSDs ({c['pg_num'] // c['chunk']} launches of "
+        f"{c['chunk']} lanes): {out['map_s']:.3f} s")
+
+    calls = {}
+    kernel = P.score_candidates
+
+    def recording(*args):
+        # keeps the first and the last launch's inputs and outputs
+        got = kernel(*args)
+        keep = (tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                      for a in args), tuple(t.clone() for t in got))
+        calls.setdefault("first", keep)
+        calls["last"] = keep
+        return got
+    P.score_candidates = recording
+    P.launches = 0
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    try:
+        with stable_argsort(), profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            res = P.batch_calc_pg_upmaps(
+                om, 1, max_deviation=c["max_deviation"],
+                max_movement=c["max_movement"], max_src=c["max_src"],
+                max_dst=c["max_dst"], chunk=c["chunk"], raw=raw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        P.score_candidates = kernel
+    out["launches"] = P.launches
+    busy = device_busy_s(prof)
+    score_evs = [e for e in device_events(prof)
+                 if "score_kernel" in e.key]
+    traced = sum(e.count for e in score_evs)
+    got = dict(res.to_dict(), upmap_pgs=len(res.proposed),
+               **balance_digests(res.moves, res.proposed))
+    want = dict(ref["result"], upmap_pgs=ref["upmap_pgs"],
+                moves_sha256=ref["moves_sha256"],
+                proposed_sha256=ref["proposed_sha256"])
+    diff = {k: (got[k], want[k]) for k in BALANCER_KEYS + (
+        "upmap_pgs", "moves_sha256", "proposed_sha256") if got[k] != want[k]}
+    if diff:
+        fail(f"batch_calc_pg_upmaps differs from BALANCER_10K.json: {diff}")
+    if res.budget_used > c["max_movement"]:
+        fail(f"budget {c['max_movement']} exceeded: {res.budget_used}")
+    if P.launches != res.rounds or not P.launches:
+        fail(f"{P.launches} scorer launches for {res.rounds} rounds")
+    log(f"  batch_calc_pg_upmaps: {len(res.moves)} moves in {res.rounds} "
+        f"rounds, max deviation {res.max_dev_before:.3f} -> "
+        f"{res.max_dev_after:.3f}, spread {res.spread_before} -> "
+        f"{res.spread_after}, {res.candidates_scored} candidates scored: "
+        f"= BALANCER_10K.json, digests included; {P.launches} "
+        f"scorer launches")
+    for label, (args, (best, score)) in calls.items():
+        pb, ps = P.score_candidates_plain(*args)
+        if not torch.equal(best, pb) or not torch.equal(
+                score.view(torch.int32), ps.view(torch.int32)):
+            fail(f"the {label} scorer launch differs from the plain "
+                 f"version on the card")
+    log("  the first and the last scorer launch equal the plain version "
+        "bit for bit")
+
+    # the landed upmaps against the scalar path
+    rng = np.random.default_rng(SEED + 10)
+    pss = np.sort(rng.choice(c["pg_num"], CRUSH_SAMPLE, replace=False))
+    eff = P.apply_upmaps_to_raw(raw, 1, om.pg_upmap_items)
+    up = om.pgs_to_up(1, pss)
+    want_up = np.concatenate([
+        np.asarray(r, dtype=np.int32).reshape(-1, c["size"])
+        for r in on_host_workers(_scalar_up, [
+            (om.encode(), 1, sl) for sl in slices(pss)])])
+    if not (np.array_equal(up, want_up) and np.array_equal(eff[pss],
+                                                           want_up)):
+        fail("after the upmaps land, sampled up sets differ from "
+             "pg_to_up_acting_osds")
+    log(f"  {CRUSH_SAMPLE} sampled PGs' up sets after the upmaps land "
+        f"equal pg_to_up_acting_osds")
+
+    # the last launch's shape, timed
+    args = calls["last"][0]
+    N, S2 = args[0].shape
+    U, topk = args[2].shape[0], args[5]
+    bound, by = score_bound(N, S2, U, topk, args[3].shape[0])
+    dev_ms, src = kernel_device_ms(lambda: kernel(*args), "score_kernel")
+    row = {"shape": [N, S2, U, topk], "device_ms": dev_ms,
+           "device_ms_from": src, "ms": cuda_ms(lambda: kernel(*args)),
+           "plain_ms": cuda_ms(lambda: P.score_candidates_plain(*args),
+                               warm=1, reps=3),
+           "bound_ms": bound, "bound_by": by}
+    out.update({
+        "result": got, "wall_s": wall, "device_busy_s": busy,
+        "idle_share": idle_share(busy, wall),
+        "score_s": res.score_elapsed_s,
+        "host_greedy_s": res.elapsed_s - res.score_elapsed_s,
+        "traced_score_launches": traced,
+        "traced_score_ms_per_launch": (
+            sum(e.self_device_time_total for e in score_evs) / traced / 1e3
+            if traced else None),
+        "kernel": row})
+    log(f"  balancer run {wall:.3f} s: scoring (candidates, copies, "
+        f"launch) {res.score_elapsed_s:.3f} s, host greedy "
+        f"{out['host_greedy_s']:.3f} s; device busy {show(busy)} s, idle "
+        f"share {show(out['idle_share'])}; the trace shows {traced} of "
+        f"{out['launches']} scorer launches, "
+        f"{show(out['traced_score_ms_per_launch'])} ms each")
+    log(f"  score_candidates {row['shape']} (N, 2S, U, topk): device "
+        f"{dev_ms:.4f} ms ({src}), {row['ms']:.4f} ms a call, plain "
+        f"{row['plain_ms']:.3f} ms, bound {bound:.4f} ms ({by})")
+    del calls, raw, eff
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------ phase 11
+
+def store_path(torch, dev, native_lib: Path) -> dict:
+    """Phase 7's scenario over persistent TinStores in a temporary
+    directory (removed afterwards), then 32 compressible objects
+    through zlib-compressed TinStores; fails unless the native host
+    library built in phase 1 serves TinDB's and TinStore's CRC32C on
+    SSE4.2, every read is bit-exact, and the compressed stores shrink."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch.kv import tindb
+    from ceph_tpu_torch.osd.cluster import SimCluster
+
+    if not native.crc32c_hw() or native.lib()._name != str(native_lib):
+        fail(f"the native library {native.lib()._name} is not phase 1's "
+             f"build {native_lib} on SSE4.2: TinDB would checksum in "
+             f"Python")
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-tin-")
+    try:
+        out = cluster_path(torch, dev, store="tin",
+                           store_dir=os.path.join(tmp, "osds"))
+        shutil.rmtree(os.path.join(tmp, "osds"))
+        c = SimCluster(n_osds=CLUSTER_OSDS, osds_per_host=CLUSTER_PER_HOST,
+                       pg_num=CLUSTER_PGS, profile=PROFILE,
+                       chunk_size=OBJECT_SIZE // K, store="tin",
+                       store_dir=os.path.join(tmp, "zlib"),
+                       store_compression="zlib", **entry_device(dev))
+        # a seeded 64 KiB block repeated; the block is itself a seeded
+        # 4 KiB row repeated, inside zlib's 32 KiB window
+        rng = np.random.default_rng(SEED + 11)
+        objs = {f"z{i:02d}": np.tile(rng.integers(0, 256, 4096, np.uint8),
+                                     OBJECT_SIZE // 4096)
+                for i in range(CLUSTER_MORE)}
+        t0 = time.perf_counter()
+        c.write(objs)
+        t_write = time.perf_counter() - t0
+        stats = [st.compress_stats for st in c.cluster.stores.values()]
+        logical = sum(s["logical_bytes"] for s in stats)
+        stored = sum(s["stored_bytes"] for s in stats)
+        if not stored < logical or not any(s["compressed_blobs"]
+                                           for s in stats):
+            fail(f"zlib TinStores: {stored} bytes stored of {logical}")
+        victim = c.pgs[0].acting[0]
+        c.kill_osd(victim)
+        c.revive_osd(victim)                 # remount from its WAL
+        c.tick(c.hb_interval)
+        if c.verify_all(objs) != len(objs):
+            fail("zlib TinStores: reads differ after the remount")
+        out["zlib"] = {"objects": len(objs), "write_s": t_write,
+                       "logical_bytes": logical, "stored_bytes": stored}
+        log(f"  zlib TinStores: {len(objs)} compressible objects written in "
+            f"{t_write:.3f} s, {stored} bytes stored for {logical} "
+            f"({stored / logical:.4f}); bit-exact after osd.{victim}'s "
+            f"remount")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if tindb._crc_impl is None or tindb._crc_impl.__defaults__ is None:
+        fail("TinDB's CRC32C ran in Python, not in the native library")
+    return out
+
+
+def build_all() -> Path:
+    """Phase 1: build every kernel source, one nvcc each, and the native
+    host library (g++, always anew: a library copied in from another
+    machine is never loaded), all started together; print each one's
+    build time and return the native library's path."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from ceph_tpu_torch import native
     from ceph_tpu_torch.csum import kernels as C
+    from ceph_tpu_torch.mgr import placement as P
     from ceph_tpu_torch.ops import gf_kernel as G
 
     def timed(build):
         t0 = time.perf_counter()
-        path = build()
+        path = Path(build())
         return path, time.perf_counter() - t0
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(4) as pool:
         jobs = {"gf_apply.cu": pool.submit(timed, G.build),
-                "csum.cu": pool.submit(timed, C.build)}
+                "csum.cu": pool.submit(timed, C.build),
+                "placement.cu": pool.submit(timed, P.build),
+                "native/ec_tpu.cpp": pool.submit(
+                    timed, lambda: native.build(force=True))}
+        paths = {}
         for name, job in jobs.items():
-            path, secs = job.result()
-            log(f"phase 1: built {name} in {secs:.1f} s ({path.name})")
+            try:
+                paths[name], secs = job.result()
+            except Exception as e:  # noqa: BLE001 — any failed build fails
+                fail(f"phase 1: building {name} failed: {e}")
+            log(f"phase 1: built {name} in {secs:.1f} s "
+                f"({paths[name].name})")
+    return paths["native/ec_tpu.cpp"]
 
 
 def main() -> None:
@@ -2144,11 +2540,12 @@ def main() -> None:
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: none, --gf-times or "
              f"--crc-times")
-    build_all()
+    native_lib = build_all()
 
     log("phase 2: kernels against their plain versions")
     gf_check = check_gf_kernel(torch, dev)
     csum_check = check_csum_kernels(torch, dev)
+    score_check = check_score_kernel(torch, dev)
 
     log("phase 3: main path")
     gf_set(G)
@@ -2213,20 +2610,41 @@ def main() -> None:
     by9 = bluestore["launches"]
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
     log("bluestore " + json.dumps(bluestore))
+
+    log("phase 10: the upmap balancer at 10k OSDs / 1M PGs")
+    t0 = time.perf_counter()
+    balancer = balancer_path(torch, dev)
+    log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+    log("balancer " + json.dumps(balancer))
+
+    log("phase 11: the failure path over persistent TinStores")
+    gf_set(G)
+    csum_set()
+    t0 = time.perf_counter()
+    store = store_path(torch, dev, native_lib)
+    launches11, shapes11 = gf_counts(G)
+    log(f"  gf_apply launches in phase 11: {launches11} "
+        f"({time.perf_counter() - t0:.1f} s), by (k,m,L,vec): "
+        f"{json.dumps(by_shape(shapes11))}")
+    if launches11 == 0:
+        fail("the TinStore cluster path never launched gf_apply")
+    crc11 = crc_launches("phase 11")
+    log("store " + json.dumps(store))
     kernels = [{
         "name": "gf_apply",
         "route": "cuda",
         "source": "ceph_tpu_torch/ops/csrc/gf_apply.cu",
         "replaces": "ceph_tpu/ops/pallas_gf.py:103",
         "launches": launches + launches5 + launches7 + launches8
-        + launches9,
+        + launches9 + launches11,
         "launches_by_phase": {"3": launches, "5": launches5,
                               "7": launches7, "8": launches8,
-                              "9": launches9},
+                              "9": launches9, "11": launches11},
         "launches_by_shape": {"3": by_shape(shapes3),
                               "5": backend["gf_apply_by_shape"],
                               "7": by_shape(shapes7),
-                              "8": by_shape(shapes8)},
+                              "8": by_shape(shapes8),
+                              "11": by_shape(shapes11)},
         "max_abs_err": gf_check["max_abs_err"],
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -2240,7 +2658,7 @@ def main() -> None:
     }]
     csum = times["csum"]
     crc_phases = {"3": crc3, "5": crc5, "7": crc7, "8": crc8,
-                  "9": by9["crc32c"]}
+                  "9": by9["crc32c"], "11": crc11}
     for name, replaces, main_row, by_phase, extra in (
             ("crc32c", "ceph_tpu/csum/kernels.py:113", "crc32c_256x512KiB",
              crc_phases, tuple(k for k in csum if k.startswith("crc32c")
@@ -2267,6 +2685,19 @@ def main() -> None:
             kernels[-1]["launches_by_shape"] = {
                 label.split()[-1]: shapes
                 for label, shapes in CRC_BY_SHAPE.items()}
+    row = balancer["kernel"]
+    kernels.append({
+        "name": "score_candidates", "route": "cuda",
+        "source": "ceph_tpu_torch/mgr/csrc/placement.cu",
+        "replaces": "ceph_tpu/mgr/placement.py:107",
+        "launches": balancer["launches"],
+        "launches_by_phase": {"10": balancer["launches"]},
+        "max_abs_err": score_check["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None, "shape": row["shape"],
+        "device_ms": row["device_ms"],
+        "device_ms_from": row["device_ms_from"]})
     log("e2e " + json.dumps(times["e2e"]))
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -7,7 +7,9 @@ while it is down and revive it before it goes out (the PG-log replay);
 repair a rotten shard. After every step both clusters must agree on
 the acting sets, pg states, health(), the perf counters, the OSDMap's
 bytes and every OSD store's collections, object bytes and xattrs.
-Once for an EC pool, once for a replicated one. Tolerance: none."""
+For an EC pool and a replicated one, over MemStores and over persistent
+TinStores (kill drops an OSD's RAM state, revive remounts it from its
+WAL), and once with zlib-compressed TinStores. Tolerance: none."""
 
 import numpy as np
 import pytest
@@ -24,6 +26,11 @@ SIZES = (700, 1500, 2048)   # few shard lengths: the twin compiles per length
 def _stores(c):
     out = {}
     for osd, st in sorted(c.cluster.stores.items()):
+        if st.is_down:              # a killed TinStore holds no RAM state
+            out[(osd, "down")] = True
+            continue
+        if hasattr(st, "compress_stats"):
+            out[(osd, "compress_stats")] = dict(st.compress_stats)
         for cid in st.list_collections():
             for name in st.list_objects(cid):
                 o = st.collections[cid][name]
@@ -62,18 +69,49 @@ def _objects(rng, n, tag):
                                       dtype=np.uint8) for i in range(n)}
 
 
-@pytest.mark.parametrize("pool", ["ec", "replicated"])
-def test_failure_remap_recovery_matches_twin(pool):
-    kw = dict(n_osds=12, pg_num=8, profile=PROFILES[pool], chunk_size=256)
-    jc, tc = J.SimCluster(**kw), T.SimCluster(**kw, device="cpu")
+def _rot(st, cid, name):
+    """Flip one stored byte of a shard (or replica) behind the store's
+    back: on a TinStore, in its block device file."""
+    if hasattr(st, "compress_stats"):
+        data = st.collections[cid][name].data     # a map of the device
+        data[3] ^= 0xFF
+        data.flush()
+    else:
+        data = st.read(cid, name).copy()
+        data[3] ^= 0xFF
+        st.collections[cid][name].data = data
+
+
+@pytest.mark.parametrize("pool,store,compression", [
+    ("ec", "mem", None), ("replicated", "mem", None), ("ec", "tin", None),
+    ("replicated", "tin", None), ("ec", "tin", "zlib")],
+    ids=["ec", "replicated", "ec-tin", "replicated-tin", "ec-tin-zlib"])
+def test_failure_remap_recovery_matches_twin(pool, store, compression,
+                                             tmp_path):
+    kw = dict(n_osds=12, pg_num=8, profile=PROFILES[pool], chunk_size=256,
+              store=store, store_compression=compression)
+    if store == "tin":
+        jc = J.SimCluster(**kw, store_dir=str(tmp_path / "twin"))
+        tc = T.SimCluster(**kw, store_dir=str(tmp_path / "port"),
+                          device="cpu")
+    else:
+        jc, tc = J.SimCluster(**kw), T.SimCluster(**kw, device="cpu")
     assert tc.device == torch.device("cpu")
     assert tc.pgs[0].device == torch.device("cpu")
     assert tc.osdmap.device == torch.device("cpu")
     _same(jc, tc)
     rng = np.random.default_rng(2026)
     objs = _objects(rng, 40, "o")
+    if compression:   # a seeded block repeated: blobs that compress
+        objs.update({f"z{i}": np.tile(rng.integers(0, 256, 100, np.uint8),
+                                      20) for i in range(6)})
     _both(jc, tc, lambda c: c.write(objs))
     _same(jc, tc)
+    if compression:
+        stats = [st.compress_stats for st in tc.cluster.stores.values()]
+        assert sum(s["compressed_blobs"] for s in stats) > 0
+        assert sum(s["stored_bytes"] for s in stats) < \
+            sum(s["logical_bytes"] for s in stats)
 
     # kill -> heartbeats go silent -> the monitors mark it down
     a = tc.pgs[0].acting[0]
@@ -109,11 +147,7 @@ def test_failure_remap_recovery_matches_twin(pool):
     name = sorted(n for n in objs if tc.locate(n) == 2)[0]
     for c in (jc, tc):
         be = c.pgs[2]
-        st = c.cluster.osd(be.acting[1])
-        cid = f"{be.pg}s1"
-        data = st.read(cid, name).copy()
-        data[3] ^= 0xFF
-        st.collections[cid][name].data = data
+        _rot(c.cluster.osd(be.acting[1]), f"{be.pg}s1", name)
     rep = _both(jc, tc, lambda c: c.repair_pg(2))
     assert rep["repaired"] == 1
     _same(jc, tc)
@@ -121,10 +155,14 @@ def test_failure_remap_recovery_matches_twin(pool):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="TinStore"):
-        T.SimCluster(store="tin", device="cpu")
+    with pytest.raises(ValueError, match="store_compression requires"):
+        T.SimCluster(store_compression="zlib", device="cpu")
     with pytest.raises(ValueError, match="store_compression"):
         T.SimCluster(store_compression="zstd", device="cpu")
+    with pytest.raises(ValueError, match="unknown store_compression"):
+        T.SimCluster(store="tin", store_compression="zstd", device="cpu")
+    with pytest.raises(ValueError, match="store="):
+        T.SimCluster(store="disk", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             T.SimCluster()

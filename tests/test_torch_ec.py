@@ -172,9 +172,11 @@ def test_outputs_are_tensors_on_the_coder_device():
 
 def test_registry_errors_match_jax_twin():
     # the bundled plugins of both registries (other tests may register
-    # more into the twin's, which is process-wide)
+    # more into the twin's, which is process-wide, such as its `native`
+    # plugin, which the port's registry bundles)
     bundled = {"tpu_rs", "jerasure", "isa", "lrc", "tpu_lrc", "clay", "shec"}
-    assert set(TR.plugins()) == bundled <= set(JR.plugins())
+    assert set(TR.plugins()) == bundled | {"native"}
+    assert bundled <= set(JR.plugins())
     for bad in ("plugin=nope k=4 m=2", "k=4 m=2 impl=nope",
                 "plugin=isa technique=cauchy_good k=4 m=2", "k=0 m=2"):
         with pytest.raises(ValueError):

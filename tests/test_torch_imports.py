@@ -40,7 +40,9 @@ def test_port_has_the_slice_modules():
                  "utils.op_tracker", "mon.monitor", "osd.peering",
                  "osd.scheduler", "osd.objclass", "mgr.pg_autoscaler",
                  "osd.cluster", "ec.lrc", "ec.clay", "ec.shec",
-                 "csum.checksummer", "ops.streaming", "utils.nvcc"):
+                 "csum.checksummer", "ops.streaming", "utils.nvcc",
+                 "crush.compiler", "mgr.balancer", "mgr.placement", "kv",
+                 "kv.interface", "kv.tindb", "osd.tinstore", "native"):
         assert f"ceph_tpu_torch.{name}" in mods, name
 
 

@@ -30,7 +30,9 @@ COPIES = ["utils/perf_counters.py", "utils/profiler.py",
           "crush/map.py", "crush/oracle.py", "utils/log.py",
           "utils/config.py", "utils/op_tracker.py", "mon/monitor.py",
           "osd/peering.py", "osd/scheduler.py", "osd/objclass.py",
-          "mgr/pg_autoscaler.py"]
+          "mgr/pg_autoscaler.py", "crush/compiler.py", "mgr/balancer.py",
+          "kv/interface.py", "kv/tindb.py", "kv/__init__.py",
+          "osd/tinstore.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
