@@ -18,7 +18,9 @@ optimization over arrays:
   rule's chooseleaf type) and gain (deviation transfer) for the whole
   (N candidates x U targets) block, and its top `topk` targets per
   candidate, in one launch of the hand kernel `csrc/placement.cu` on
-  the card (its plain torch version on the CPU).
+  the card (its plain torch version on the CPU). The kernel walks each
+  row's targets in deviation order and stops once its top k are
+  settled; `score_visits_plain` counts what that walk visits.
 * Selection is a cheap host greedy over the device-ranked survivors,
   bounded by a DATA-MOVEMENT BUDGET (each accepted move migrates one
   PG shard).
@@ -53,12 +55,18 @@ _NONE = np.int32(CRUSH_ITEM_NONE)
 MASKED_DOMAIN = -(2 ** 31) + 1
 MAX_TOPK = 8          # the kernel keeps 8 ranked targets a candidate
 MAX_SLOTS = 32        # 2S: raw + effective set of a PG of size <= 16
+# the most targets the kernel's walk instance stages in shared memory;
+# above it the exhaustive scan instance runs (placement.cu's kMaxWalk,
+# which _load checks)
+WALK_MAX_TARGETS = 4096
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "placement.cu"
 _lib = None
 _lib_lock = threading.Lock()
-# launches of the scorer kernel (score_candidates on CUDA tensors)
+# launches of the scorer kernel (score_candidates on CUDA tensors), in
+# all and by instance
 launches = 0
+instance_launches = {"walk": 0, "scan": 0}
 
 
 def osd_domains(crush, type_id: int, n_osds: int) -> np.ndarray:
@@ -155,6 +163,67 @@ def score_candidates_plain(members: torch.Tensor, src: torch.Tensor,
     return best[:, :topk].to(torch.int32), vals[:, :topk].contiguous()
 
 
+def _order_key(x: torch.Tensor) -> torch.Tensor:
+    """Order-preserving bits of float32 `x` as int64 (-0 before +0):
+    the key of the kernel's sort."""
+    bits = x.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    return torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF,
+                       bits | 0x80000000)
+
+
+def score_visits_plain(members: torch.Tensor, src: torch.Tensor,
+                       dsts: torch.Tensor, dev: torch.Tensor,
+                       dom: torch.Tensor, topk: int) -> torch.Tensor:
+    """The work the kernel does for each row, in torch ops: (N,) int32,
+    the targets whose legality it tests plus the checks of its -inf
+    fill (what `score_candidates(..., visits=)` writes on the card).
+
+    The walk instance (U <= WALK_MAX_TARGETS) visits the targets in
+    (dev[dsts[u]] ascending, u ascending) order, along which a row's
+    gain never increases, and stops before the first target whose gain
+    is <= 0, or is strictly below the topk-th legal gain once topk
+    legal entries are held. A row with c < topk legal entries then
+    checks u = 0, 1, ... until it has found topk - c that hold none.
+    Rows whose dev[src] is not finite, every row when some dev[dsts]
+    is not finite, and every row of the scan instance (U above the cap)
+    visit all U targets."""
+    N, U = members.shape[0], dsts.shape[0]
+    full = torch.full((N,), U, dtype=torch.int32, device=members.device)
+    ddev = dev[dsts.long()]
+    if U > WALK_MAX_TARGETS or not bool(torch.isfinite(ddev).all()):
+        return full
+    dsrc = dev[src.long()]
+    valid = (members != CRUSH_ITEM_NONE) & (members != src[:, None])
+    mdom = torch.where(valid, dom[members.clamp(0, dom.shape[0] - 1).long()],
+                       torch.tensor(MASKED_DOMAIN, dtype=dom.dtype,
+                                    device=dom.device))
+    order = torch.sort(_order_key(ddev), stable=True).indices
+    wd = dsts[order]                                       # walk order
+    legal = ~((mdom[:, :, None] == dom[wd.long()][None, None, :]).any(1)
+              | (members[:, :, None] == wd[None, None, :]).any(1))
+    gain = dsrc[:, None] - ddev[order][None, :] - 1.0      # (N, U)
+    pos = torch.arange(U, device=members.device)
+    ok = legal & (gain > 0.0)
+    cnt = torch.cumsum(ok, dim=1, dtype=torch.int32)
+    # the walk's stops: the first gain <= 0; once the topk-th legal
+    # entry (at jk) is held, the first later gain strictly below its gain
+    stop = torch.where(gain <= 0.0, pos, U).amin(dim=1)
+    jk = torch.where(cnt >= topk, pos, U).amin(dim=1)
+    kth = gain.gather(1, jk.clamp(max=U - 1)[:, None])
+    later = (pos[None, :] > jk[:, None]) & (gain < kth)
+    stop = torch.minimum(stop, torch.where(later, pos, U).amin(dim=1))
+    held = torch.where(stop > 0, cnt.gather(
+        1, (stop - 1).clamp(min=0)[:, None])[:, 0], 0)
+    # the fill: u = 0, 1, ... examined until topk - held of them hold no
+    # legal entry (with held < topk the walk has met every legal entry)
+    need = (topk - held).clamp(min=0)
+    free = torch.cumsum(~ok[:, torch.argsort(order)], dim=1,
+                        dtype=torch.int32)                 # index order
+    fill = torch.where(free >= need[:, None], pos, U).amin(dim=1) + 1
+    visits = stop + torch.where(need > 0, fill, 0)
+    return torch.where(torch.isfinite(dsrc), visits.to(torch.int32), full)
+
+
 def build() -> Path:
     """Compile placement.cu into the build directory (once per source
     content) and return the shared library's path. Raises on a failed
@@ -171,6 +240,15 @@ def _load():
             lib.score_candidates.argtypes = [P, P, P, P, P, I, I, I, I, I,
                                              P, P, P]
             lib.score_candidates.restype = I
+            lib.score_candidates_visits.argtypes = [P, P, P, P, P, I, I, I,
+                                                    I, I, P, P, P, P]
+            lib.score_candidates_visits.restype = I
+            lib.score_walk_max_targets.argtypes = []
+            lib.score_walk_max_targets.restype = I
+            if lib.score_walk_max_targets() != WALK_MAX_TARGETS:
+                raise RuntimeError(
+                    f"placement.cu stages {lib.score_walk_max_targets()} "
+                    f"targets, placement.py expects {WALK_MAX_TARGETS}")
             _lib = lib
     return _lib
 
@@ -200,36 +278,57 @@ def _check(members, src, dsts, dev, dom, topk) -> None:
 
 def score_candidates(members: torch.Tensor, src: torch.Tensor,
                      dsts: torch.Tensor, dev: torch.Tensor,
-                     dom: torch.Tensor, topk: int
+                     dom: torch.Tensor, topk: int,
+                     visits: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Score the (N, U) candidate block (see `score_candidates_plain`
-    for the function). CUDA tensors launch the hand kernel (each launch
-    counted in the module's `launches`); CPU tensors run the plain
-    version; any other device raises."""
+    for the function). CUDA tensors launch the hand kernel, each launch
+    counted in the module's `launches` and, by the instance that ran, in
+    `instance_launches` ("walk" for U <= WALK_MAX_TARGETS, else
+    "scan"); CPU tensors run the plain version; any other device raises.
+
+    `visits`, an (N,) int32 tensor on the same device, receives each
+    row's work: on the card the kernel's own count, on the CPU
+    `score_visits_plain`'s."""
     global launches
     _check(members, src, dsts, dev, dom, topk)
     device = members.device
+    N, S2 = members.shape
+    if visits is not None and (visits.shape != (N,)
+                               or visits.dtype != torch.int32
+                               or visits.device != device
+                               or not visits.is_contiguous()):
+        raise ValueError("visits must be a contiguous (N,) int32 tensor "
+                         "on the scorer's device")
     if device.type == "cpu":
+        if visits is not None:
+            visits.copy_(score_visits_plain(members, src, dsts, dev, dom,
+                                            topk))
         return score_candidates_plain(members, src, dsts, dev, dom, topk)
     if device.type != "cuda":
         raise ValueError(f"score_candidates runs on cuda or cpu tensors, "
                          f"got {device}")
-    N, S2 = members.shape
     members, src, dsts, dev, dom = (t.contiguous() for t in
                                     (members, src, dsts, dev, dom))
     best = torch.empty((N, topk), dtype=torch.int32, device=device)
     score = torch.empty((N, topk), dtype=torch.float32, device=device)
     lib = _load()
+    args = (members.data_ptr(), src.data_ptr(), dsts.data_ptr(),
+            dev.data_ptr(), dom.data_ptr(), N, S2, dsts.shape[0],
+            dev.shape[0], topk, best.data_ptr(), score.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.score_candidates(
-            members.data_ptr(), src.data_ptr(), dsts.data_ptr(),
-            dev.data_ptr(), dom.data_ptr(), N, S2, dsts.shape[0],
-            dev.shape[0], topk, best.data_ptr(), score.data_ptr(), stream)
+        if visits is None:
+            rc = lib.score_candidates(*args, stream)
+        else:
+            rc = lib.score_candidates_visits(*args, visits.data_ptr(),
+                                             stream)
     if rc != 0:
         raise RuntimeError(f"score_candidates launch failed: cudaError "
                            f"{rc} (N={N}, 2S={S2}, U={dsts.shape[0]})")
     launches += 1
+    instance_launches["walk" if dsts.shape[0] <= WALK_MAX_TARGETS
+                      else "scan"] += 1
     return best, score
 
 

@@ -17,10 +17,16 @@ Phases, each of which fails loudly (exit code 1, no result line):
      rows, and crc32c_sets launches of 2, 3 and 4 sets of mixed L and
      seeds; XXH32 and XXH64 at 13 lengths and seeds 0 and 42,
      misaligned row views included; a sample of rows against the
-     reference oracle; the placement scorer at N of 64, 129, 1000 and
-     262,144, U of 1, 7, 64, 512 and 700, 2S of 6, 22 and 32, topk 1
-     to 8, all-illegal blocks and integer deviations (ties everywhere),
-     indices and float32 scores bit for bit);
+     reference oracle; the placement scorer at 31 cases (SCORE_CASES:
+     N of 64, 129, 1000 and 262,144, U of 1 to 5000, so both the walk
+     instance and the scan instance above 4096 targets, 2S of 6, 22
+     and 32, topk 1 to 8; targets in random order and in the
+     balancer's deviation order, integer deviations, rounding-collapsed
+     gains, all-illegal blocks, rows whose first 128 targets clash,
+     inf and NaN deviations), indices and float32 scores bit for bit
+     (any NaN equal to any NaN), each case launched twice, the second
+     time through the counting entry, whose targets visited a row must
+     be score_visits_plain's);
   3. drive the main path at full width: RS k=8 m=3 over 1024 objects
      of 4 MiB (data made on the card from a seeded torch.Generator),
      in batches of 32: fused write (parity + 11 hinfo CRCs per object),
@@ -96,7 +102,9 @@ Phases, each of which fails loudly (exit code 1, no result line):
      sampled PGs' up sets after the upmaps land must be
      pg_to_up_acting_osds', and the first and the last scorer launch
      must equal the plain version on the card; prints the mapping time,
-     the scorer's device ms a launch, its launches and bound, the host
+     the scorer's device ms a launch at the last launch's inputs, its
+     launches, the targets its rows visit (score_visits_plain, held
+     equal to the kernel's own count) and the bound they give, the host
      greedy's time and the device's idle share;
  11. phase 7's scenario over persistent TinStores in a temporary
      directory (removed afterwards): the revive is a real remount from
@@ -151,6 +159,19 @@ kernel's parts (tools/crc_microbench.cu: the loads alone, the shared
 and the lane-private tables' lookups alone, the lane-private lookups
 on the kernel's loads) with each part's instructions a byte from
 `cuobjdump -sass`.
+
+    python3 chip_smoke.py --score-times [PARENT_PLACEMENT_CU]
+
+prints the placement scorer's rows (SCORE_ROWS at N = 262,144, 2S = 6,
+U = 512, topk 8: the balancer's target order, the same rows with the
+targets shuffled, phase 2's unsorted integer deviations, and rows whose
+first 128 targets clash; then phase 10's last launch, after phase 10's
+balancer run and its checks): device ms a launch, ms a call, plain ms,
+the targets a row visits, the bound and the share, and the SASS loops
+of the 2S = 6 instances. Given an older placement.cu (its C entry
+score_candidates has kept its signature, e.g. `git show
+<commit>:ceph_tpu_torch/mgr/csrc/placement.cu` into a file), it builds
+that too, side by side, and times it on the same inputs.
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
 
@@ -714,70 +735,172 @@ def check_csum_kernels(torch, dev) -> dict:
     return {"max_abs_err": worst}
 
 
+LONG_WALK = 128              # "long": the targets every row clashes with
+
+
 def score_inputs(torch, dev, rng, N: int, S2: int, U: int, n_osds: int,
-                 ties: bool, illegal: bool = False) -> tuple:
+                 kind: str = "ties") -> tuple:
     """A seeded candidate block for the placement scorer on `dev`:
     members with CRUSH_ITEM_NONE holes and the source among them,
-    domains 8 devices wide with some devices outside every bucket, dev
-    integer-valued when `ties` (ties everywhere), and with `illegal`
-    every row's source the least loaded device (every gain <= 0)."""
+    domains 8 devices wide with some devices outside every bucket, and
+    by `kind`: "ties" integer-valued deviations (ties everywhere) and
+    "normal" real ones, both with dsts in random order (the kernel sorts
+    them); "illegal" every row's source the least loaded device (every
+    gain <= 0); "sorted" dsts the U least loaded devices in deviation
+    order, as the balancer passes them; "balancer" that, with phase
+    10's shape of row (2S = 6: a size-3 PG on 3 hosts of 8 devices,
+    raw set = effective set, its source among the 512 most loaded
+    devices); "shuffled" the balancer's rows with dsts in random order
+    (the walk sorts them); "collapsed" dev[src] = 3e7 on half the rows and target
+    deviations 0.125, 0.25, ... 1.0 in random order, which round to one
+    or two gains; "long" the balancer's rows whose first LONG_WALK targets
+    all clash (one domain that a member of every row holds); and "nan
+    source", "inf source", "inf target", "-inf target", "nan target"
+    that value in dev[src] of every third row or in two targets."""
     import numpy as np
     dom = (np.arange(n_osds) // 8 - 1000).astype(np.int32)
-    dom[rng.choice(n_osds, 7, replace=False)] = -(10 ** 7) - np.arange(7)
-    dev_ = (rng.integers(-20, 21, n_osds).astype(np.float64) if ties
+    outside = rng.choice(n_osds, 7, replace=False)
+    dev_ = (rng.integers(-20, 21, n_osds).astype(np.float64)
+            if kind in ("ties", "illegal", "collapsed")
             else rng.normal(0, 30, n_osds))
-    dsts = rng.choice(n_osds, U, replace=False).astype(np.int32)
-    members = rng.integers(0, n_osds, (N, S2)).astype(np.int32)
-    members[rng.random((N, S2)) < 0.1] = 0x7FFFFFFF
-    src = rng.integers(0, n_osds, N).astype(np.int32)
-    if illegal:
-        src[:] = int(np.argmin(dev_))
-    members[:, 0] = src
-    if N > 16 and not illegal:
-        members[-8:] = 0x7FFFFFFF            # pow2 padding rows
-        src[-8:] = 0
+    if kind in ("balancer", "shuffled", "long"):
+        # hosts of 8 devices, one PG on 3 distinct hosts, raw = effective
+        hosts = n_osds // 8
+        order = np.argsort(dev_, kind="stable")
+        src = order[-512:][rng.integers(0, 512, N)].astype(np.int32)
+        h = np.empty((N, 3), np.int64)
+        h[:, 0] = src // 8
+        for c in (1, 2):
+            h[:, c] = rng.integers(0, hosts, N)
+            while True:
+                same = (h[:, [c]] == h[:, :c]).any(axis=1)
+                if not same.any():
+                    break
+                h[same, c] = rng.integers(0, hosts, int(same.sum()))
+        raw = (h * 8 + rng.integers(0, 8, (N, 3))).astype(np.int32)
+        raw[:, 0] = src
+        members = np.concatenate([raw, raw], axis=1)[:, :S2]
+        dsts = order[:U].astype(np.int32)
+        if kind == "shuffled":
+            dsts = rng.permutation(dsts)
+        if kind == "long":
+            holder = int(order[U])          # neither a target nor a source
+            dom[dsts[:LONG_WALK]] = dom[holder] = 1 << 20
+            members[:, 1] = members[:, 4 % S2] = holder
+    else:
+        dom[outside] = -(10 ** 7) - np.arange(7)
+        dsts = rng.choice(n_osds, U, replace=False).astype(np.int32)
+        if kind == "sorted":
+            dsts = np.argsort(dev_, kind="stable")[:U].astype(np.int32)
+        members = rng.integers(0, n_osds, (N, S2)).astype(np.int32)
+        members[rng.random((N, S2)) < 0.1] = 0x7FFFFFFF
+        src = rng.integers(0, n_osds, N).astype(np.int32)
+        if kind == "illegal":
+            src[:] = int(np.argmin(dev_))
+        members[:, 0] = src
+        if N > 16 and kind != "illegal":
+            members[-8:] = 0x7FFFFFFF        # pow2 padding rows
+            src[-8:] = 0
+    dev_ = dev_.astype(np.float32)
+    if kind == "collapsed":
+        dev_[dsts] = rng.choice(np.float32(np.arange(1, 9) / 8), U)
+        dev_[src[::2]] = np.float32(3.0e7)
+    if kind.endswith("source"):
+        dev_[src[::3]] = np.float32(kind.split()[0])
+    if kind.endswith("target"):
+        dev_[dsts[[0, U // 2]]] = np.float32(kind.split()[0])
     return tuple(torch.from_numpy(a).to(dev) for a in
-                 (members, src, dsts, dev_.astype(np.float32), dom))
+                 (members, src, dsts, dev_, dom))
+
+
+def same_scores(torch, a, b) -> bool:
+    """Equal bit for bit, except that any two NaNs are equal: a NaN's
+    payload is the subtraction unit's, not the function's (torch.sort
+    ranks every NaN alike)."""
+    an, bn = torch.isnan(a), torch.isnan(b)
+    return torch.equal(an, bn) and torch.equal(
+        torch.where(an, 0.0, a).view(torch.int32),
+        torch.where(bn, 0.0, b).view(torch.int32))
+
+
+# phase 2's scorer cases: (N, 2S, U, topk, kind)
+SCORE_CASES = (
+    (1000, 6, 512, 8, "ties"), (129, 6, 7, 7, "ties"), (64, 6, 1, 1, "ties"),
+    (64, 22, 512, 8, "normal"), (1000, 32, 700, 8, "ties"),
+    (1000, 22, 64, 3, "ties"), (129, 32, 512, 8, "illegal"),
+    (1000, 6, 512, 5, "illegal"), (262144, 6, 512, 8, "ties"),
+    # the walk: the balancer's order, collapsed ties, long walks
+    (1000, 6, 512, 8, "sorted"), (1000, 22, 512, 4, "sorted"),
+    (262144, 6, 512, 8, "balancer"), (262144, 6, 512, 5, "balancer"),
+    (262144, 6, 512, 1, "balancer"), (262144, 6, 512, 8, "shuffled"),
+    (262144, 6, 512, 1, "ties"),
+    (262144, 6, 512, 5, "ties"),
+    (1000, 6, 512, 8, "collapsed"), (1000, 6, 64, 3, "collapsed"),
+    (1000, 6, 512, 8, "long"), (1000, 6, 512, 1, "long"),
+    # the most targets the walk stages (96 KiB of shared memory), and
+    # the scan instance above it
+    (1000, 22, 4096, 8, "normal"), (1000, 6, 4097, 8, "ties"),
+    (1000, 6, 5000, 5, "normal"),
+    # non-finite deviations: those rows, or the whole block, exhaustive
+    (1000, 6, 512, 8, "nan source"), (1000, 6, 512, 8, "inf source"),
+    (1000, 6, 512, 8, "inf target"), (1000, 6, 512, 5, "-inf target"),
+    (1000, 6, 512, 8, "nan target"), (1000, 6, 5000, 8, "nan source"),
+    (1000, 6, 5000, 8, "inf target"))
 
 
 def check_score_kernel(torch, dev) -> dict:
     """Phase 2 for placement.cu: best indices and float32 scores bit for
-    bit against score_candidates_plain on the card, at N not a multiple
-    of the block (1000, 129), N = 64 (the pad minimum) and N = 262,144
-    (phase 10's), U = 1, 7, 512 and 700 (two staged chunks), 2S = 6, 22
-    and 32, topk 1 to 8, rows where every target is illegal, and
-    integer-valued deviations (ties everywhere)."""
+    bit (any NaN equal to any NaN) against score_candidates_plain on
+    the card at every SCORE_CASES entry: N not a multiple of the block
+    (1000, 129), N = 64 (the pad minimum) and N = 262,144 (phase 10's),
+    U from 1 to 5000 (the walk instance up to 4096 targets, the scan
+    above), 2S = 6, 22 and 32, topk 1 to 8, and every kind of
+    `score_inputs`. Each case launches the kernel twice, through
+    score_candidates and through its counting entry, whose visits must
+    be score_visits_plain's; fails unless every call launched and both
+    instances ran."""
     import numpy as np
 
     from ceph_tpu_torch.mgr import placement as P
 
     rng = np.random.default_rng(SEED + 21)
-    cases = [(1000, 6, 512, 8, True, False), (129, 6, 7, 7, True, False),
-             (64, 6, 1, 1, True, False), (64, 22, 512, 8, False, False),
-             (1000, 32, 700, 8, True, False), (1000, 22, 64, 3, True, False),
-             (129, 32, 512, 8, True, True), (1000, 6, 512, 5, False, True),
-             (262144, 6, 512, 8, True, False)]
     worst = 0.0
-    n0 = P.launches
-    for N, S2, U, topk, ties, illegal in cases:
-        inp = score_inputs(torch, dev, rng, N, S2, U, 10_000, ties, illegal)
+    n0, inst0 = P.launches, dict(P.instance_launches)
+    walked = []
+    for N, S2, U, topk, kind in SCORE_CASES:
+        inp = score_inputs(torch, dev, rng, N, S2, U, 10_000, kind)
         best, score = P.score_candidates(*inp, topk)
+        visits = torch.full((N,), -1, dtype=torch.int32, device=dev)
+        best2, score2 = P.score_candidates(*inp, topk, visits=visits)
         pb, ps = P.score_candidates_plain(*inp, topk)
+        pv = P.score_visits_plain(*inp, topk)
         torch.cuda.synchronize()
-        name = f"score_candidates N={N} 2S={S2} U={U} topk={topk}"
-        if best.shape != (N, topk) or not torch.equal(best, pb) or \
-                not torch.equal(score.view(torch.int32),
-                                ps.view(torch.int32)):
-            fail(f"{name}: the kernel disagrees with its plain version")
+        name = f"score_candidates N={N} 2S={S2} U={U} topk={topk} {kind}"
+        for b, s in ((best, score), (best2, score2)):
+            if b.shape != (N, topk) or not torch.equal(b, pb) or \
+                    not same_scores(torch, s, ps):
+                fail(f"{name}: the kernel disagrees with its plain version")
+        if not torch.equal(visits, pv):
+            fail(f"{name}: the kernel visited {int(visits.sum())} targets, "
+                 f"score_visits_plain counts {int(pv.sum())}")
         finite = torch.isfinite(ps)
-        if illegal and bool(finite.any()):
+        if kind == "illegal" and bool(finite.any()):
             fail(f"{name}: an all-illegal block scored a legal target")
+        if kind == "long" and int(visits[:-8].min()) < LONG_WALK:
+            fail(f"{name}: a row settled before its clashing targets")
         if bool(finite.any()):
             worst = max(worst, float((score - ps)[finite].abs().max()))
-    if P.launches - n0 != len(cases):
+        walked.append(f"{kind} U={U} topk={topk}: "
+                      f"{float(pv.float().mean()):.2f}")
+    if P.launches - n0 != 2 * len(SCORE_CASES):
         fail("phase 2's scorer cases did not all launch the kernel")
-    log(f"  score_candidates: {len(cases)} shapes bit-exact against the "
-        f"plain version (indices, scores, -inf slots, tie order)")
+    ran = {k: P.instance_launches[k] - inst0[k] for k in inst0}
+    if not all(ran.values()):
+        fail(f"phase 2 did not run both scorer instances: {ran}")
+    log(f"  score_candidates: {len(SCORE_CASES)} cases bit-exact against "
+        f"the plain version (indices, scores, -inf slots, tie order), "
+        f"visits equal to score_visits_plain; launches by instance "
+        f"{ran}; mean targets a row: {'; '.join(walked)}")
     torch.cuda.empty_cache()
     return {"max_abs_err": worst}
 
@@ -2223,17 +2346,98 @@ def bluestore_path(torch, dev) -> dict:
 
 # ------------------------------------------------------------ phase 10
 
-def score_bound(N: int, S2: int, U: int, topk: int, n_osds: int
-                ) -> tuple[float, str]:
+def score_bound(N: int, S2: int, U: int, topk: int, n_osds: int,
+                visited: int) -> tuple[float, str]:
     """Least time (ms) the card could take for one scorer launch: the
     larger of the bytes (members, sources, the target list, dev and dom
     read once; the (index, score) pairs written once) through HBM and
-    the N*U*2*2S int32 compares at the int32 rate."""
+    the compares these inputs need at the int32 rate: 2S + 1 for each of
+    the `visited` targets (`score_visits_plain` summed over the rows:
+    what each row tests before its top k are settled, plus the -inf
+    fill's checks). 2S + 1, not 2*2S: a member equal to the target is
+    either the source or in the target's domain, so one compare with
+    the source and one a member's domain decide legality."""
     t_bytes = (N * S2 * 4 + N * 4 + U * 4 + n_osds * 8
                + N * topk * 8) / HBM_BYTES_PER_S
-    t_ops = N * U * 2 * S2 / INT32_OPS_PER_S
+    t_ops = visited * (S2 + 1) / INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def scorer_library(torch, path: Path):
+    """A built placement.cu library (this checkout's or an older one:
+    the C entry score_candidates keeps its signature) as a function of
+    the scorer's arguments that launches it on the current stream."""
+    import ctypes
+    lib = ctypes.CDLL(str(path))
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    lib.score_candidates.argtypes = [P_] * 5 + [I_] * 5 + [P_] * 3
+    lib.score_candidates.restype = I_
+
+    def call(members, src, dsts, dev, dom, topk):
+        N, S2 = members.shape
+        best = torch.empty((N, topk), dtype=torch.int32, device=members.device)
+        score = torch.empty((N, topk), dtype=torch.float32,
+                            device=members.device)
+        rc = lib.score_candidates(
+            members.data_ptr(), src.data_ptr(), dsts.data_ptr(),
+            dev.data_ptr(), dom.data_ptr(), N, S2, dsts.shape[0],
+            dev.shape[0], topk, best.data_ptr(), score.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"{path.name}: score_candidates returned cudaError {rc}")
+        return best, score
+    return call
+
+
+def score_row(torch, args, parent=None) -> dict:
+    """One scorer row at `args` (the scorer's six arguments on the card):
+    the kernel's device ms a launch (a trace) and ms a call, beside the
+    plain version's ms and, with `parent` (`scorer_library` of an older
+    placement.cu), that kernel's device ms on the same inputs, its
+    result held equal; the mean targets a row visits
+    (score_visits_plain, checked against the kernel's own count) and the
+    bound they give, with each kernel's share of it."""
+    from ceph_tpu_torch.mgr import placement as P
+    members, src, dsts, dev_, dom, topk = args
+    N, S2 = members.shape
+    U = dsts.shape[0]
+    pv = P.score_visits_plain(*args)
+    kv = torch.empty_like(pv)
+    P.score_candidates(*args, visits=kv)
+    if not torch.equal(kv, pv):
+        fail(f"scorer at {[N, S2, U, topk]}: the kernel visited "
+             f"{int(kv.sum())} targets, score_visits_plain {int(pv.sum())}")
+    visited = int(pv.sum())
+    bound, by = score_bound(N, S2, U, topk, dev_.shape[0], visited)
+    dev_ms, src_ms = kernel_device_ms(lambda: P.score_candidates(*args),
+                                      "score_kernel")
+    row = {"shape": [N, S2, U, topk], "device_ms": dev_ms,
+           "device_ms_from": src_ms,
+           "ms": cuda_ms(lambda: P.score_candidates(*args)),
+           "plain_ms": cuda_ms(lambda: P.score_candidates_plain(*args),
+                               warm=1, reps=3),
+           "mean_visits": visited / N, "bound_ms": bound, "bound_by": by,
+           "share": bound / dev_ms}
+    if parent is not None:
+        got, want = parent(*args), P.score_candidates(*args)
+        if not (torch.equal(got[0], want[0])
+                and same_scores(torch, got[1], want[1])):
+            fail(f"scorer at {[N, S2, U, topk]}: the parent kernel's result "
+                 f"differs from this one's")
+        ms, src_p = kernel_device_ms(lambda: parent(*args), "score_kernel")
+        row.update(parent_device_ms=ms, parent_device_ms_from=src_p,
+                   parent_share=bound / ms)
+    log(f"  score_candidates {row['shape']} (N, 2S, U, topk): device "
+        f"{dev_ms:.5f} ms ({src_ms}), {row['ms']:.5f} ms a call"
+        + (f", parent device {row['parent_device_ms']:.5f} ms"
+           if parent is not None else "")
+        + f", plain {row['plain_ms']:.3f} ms; {row['mean_visits']:.2f} "
+        f"targets a row, bound {bound:.5f} ms "
+        f"({by}), share {row['share']:.3f}"
+        + (f" (parent {row['parent_share']:.3f})"
+           if parent is not None else ""))
+    return row
 
 
 def heavy_half_map(c: dict):
@@ -2262,7 +2466,7 @@ BALANCER_KEYS = ("moves", "rounds", "candidates_scored", "max_dev_before",
                  "budget_used", "converged")
 
 
-def balancer_path(torch, dev) -> dict:
+def balancer_path(torch, dev, parent=None) -> dict:
     """The mgr's upmap balancer at 10k OSDs / 1M PGs on the card
     (BALANCER_10K.json's configuration): the pool's raw mapping, then
     batch_calc_pg_upmaps traced, np.argsort pinned to kind="stable" as
@@ -2271,7 +2475,9 @@ def balancer_path(torch, dev) -> dict:
     argsort orders ties by the CPU it runs on); fails unless its result
     and digests are the JAX package's, the budget holds, 2,000 sampled PGs' up sets
     after the upmaps land are pg_to_up_acting_osds', and the first and
-    the last scorer launch equal the plain version on the card."""
+    the last scorer launch equal the plain version on the card. The
+    last launch is timed (`score_row`), beside `parent`'s kernel where
+    one is given."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -2348,8 +2554,7 @@ def balancer_path(torch, dev) -> dict:
         f"scorer launches")
     for label, (args, (best, score)) in calls.items():
         pb, ps = P.score_candidates_plain(*args)
-        if not torch.equal(best, pb) or not torch.equal(
-                score.view(torch.int32), ps.view(torch.int32)):
+        if not torch.equal(best, pb) or not same_scores(torch, score, ps):
             fail(f"the {label} scorer launch differs from the plain "
                  f"version on the card")
     log("  the first and the last scorer launch equal the plain version "
@@ -2371,17 +2576,8 @@ def balancer_path(torch, dev) -> dict:
     log(f"  {CRUSH_SAMPLE} sampled PGs' up sets after the upmaps land "
         f"equal pg_to_up_acting_osds")
 
-    # the last launch's shape, timed
-    args = calls["last"][0]
-    N, S2 = args[0].shape
-    U, topk = args[2].shape[0], args[5]
-    bound, by = score_bound(N, S2, U, topk, args[3].shape[0])
-    dev_ms, src = kernel_device_ms(lambda: kernel(*args), "score_kernel")
-    row = {"shape": [N, S2, U, topk], "device_ms": dev_ms,
-           "device_ms_from": src, "ms": cuda_ms(lambda: kernel(*args)),
-           "plain_ms": cuda_ms(lambda: P.score_candidates_plain(*args),
-                               warm=1, reps=3),
-           "bound_ms": bound, "bound_by": by}
+    # the last launch's shape, timed, its visits counted
+    row = score_row(torch, calls["last"][0], parent)
     out.update({
         "result": got, "wall_s": wall, "device_busy_s": busy,
         "idle_share": idle_share(busy, wall),
@@ -2398,11 +2594,58 @@ def balancer_path(torch, dev) -> dict:
         f"share {show(out['idle_share'])}; the trace shows {traced} of "
         f"{out['launches']} scorer launches, "
         f"{show(out['traced_score_ms_per_launch'])} ms each")
-    log(f"  score_candidates {row['shape']} (N, 2S, U, topk): device "
-        f"{dev_ms:.4f} ms ({src}), {row['ms']:.4f} ms a call, plain "
-        f"{row['plain_ms']:.3f} ms, bound {bound:.4f} ms ({by})")
     del calls, raw, eff
     torch.cuda.empty_cache()
+    return out
+
+
+# the scorer's rows of `--score-times`: (label, N, 2S, U, topk, kind)
+SCORE_ROWS = (("balancer order", 262144, 6, 512, 8, "balancer"),
+              ("balancer rows, targets shuffled", 262144, 6, 512, 8,
+               "shuffled"),
+              ("unsorted", 262144, 6, 512, 8, "ties"),
+              ("worst case: the first 128 targets clash", 262144, 6, 512, 8,
+               "long"))
+
+
+def score_times(torch, dev, parent_src: Path | None) -> dict:
+    """`--score-times`: the scorer's rows (SCORE_ROWS, then phase 10's
+    last launch, which needs phase 10's balancer run) and the SASS of
+    the walk's loops, beside the kernel of `parent_src` (an older
+    placement.cu) where it is given, built side by side."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from ceph_tpu_torch.mgr import placement as P
+    from ceph_tpu_torch.utils import nvcc
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(P.build)] + ([pool.submit(nvcc.build, parent_src)]
+                                         if parent_src else [])
+        libs = [j.result() for j in jobs]
+    log(f"  built {', '.join(lib.name for lib in libs)}")
+    parent = scorer_library(torch, libs[1]) if parent_src else None
+    rng = np.random.default_rng(SEED + 23)
+    out = {"rows": {}}
+    for label, N, S2, U, topk, kind in SCORE_ROWS:
+        log(f"  {label}:")
+        args = score_inputs(torch, dev, rng, N, S2, U, 10_000, kind) + (topk,)
+        out["rows"][label] = score_row(torch, args, parent)
+    log("  phase 10's last launch (the balancer run first):")
+    out["rows"]["phase 10, last launch"] = \
+        balancer_path(torch, dev, parent)["kernel"]
+    for name, lib in zip(("change", "parent"), libs):
+        for k, loops in sass_loops(lib).items():
+            if "ILi6E" not in k or "score_kernel" not in k:
+                continue
+            label = (f"{name} "
+                     + ("walk" if "_walk" in k else
+                        "scan" if "_scan" in k else "score_kernel") + "<6>")
+            out[f"sass {label}"] = loops
+            log(f"  SASS {label}: loops as (instructions, LDS, LDG): "
+                f"{[(lp['instructions'], lp['lds'], lp['ldg']) for lp in loops]}"
+                f"; a loop with one LDS reads one staged target record an "
+                f"iteration")
     return out
 
 
@@ -2537,9 +2780,17 @@ def main() -> None:
         log(card_line())
         log(json.dumps({"gf_times": rows}))
         return
+    if sys.argv[1:2] == ["--score-times"] and len(sys.argv) <= 3:
+        parent = Path(sys.argv[2]).resolve() if len(sys.argv) == 3 else None
+        if parent is not None and not parent.is_file():
+            fail(f"--score-times: no file {parent}")
+        rows = score_times(torch, dev, parent)
+        log(card_line())
+        log(json.dumps({"score_times": rows}))
+        return
     if sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]}: none, --gf-times or "
-             f"--crc-times")
+        fail(f"unknown arguments {sys.argv[1:]}: none, --gf-times, "
+             f"--crc-times or --score-times [PARENT_PLACEMENT_CU]")
     native_lib = build_all()
 
     log("phase 2: kernels against their plain versions")
@@ -2697,7 +2948,8 @@ def main() -> None:
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None, "shape": row["shape"],
         "device_ms": row["device_ms"],
-        "device_ms_from": row["device_ms_from"]})
+        "device_ms_from": row["device_ms_from"],
+        "mean_visits": row["mean_visits"]})
     log("e2e " + json.dumps(times["e2e"]))
     log(card_line())
     log(json.dumps({"kernels": kernels}))

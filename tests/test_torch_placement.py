@@ -2,7 +2,9 @@
 crush.compiler) held against its twin on the CPU, on the same numpy-seeded
 inputs: the scorer bit for bit (best indices, float32 scores, tie order
 and -inf slots) against the twin's jitted `_score_kernel`; the host
-helpers; the batched and the scalar balancer on small maps (moves,
+helpers; the card kernel's walk modelled step for step (`_walk_model`)
+against the twin, the plain version and `score_visits_plain`; the
+batched and the scalar balancer on small maps (moves,
 proposed upmaps, rounds, candidates scored, spreads); the CRUSH text
 compiler across the two packages. Tolerance: none."""
 
@@ -129,6 +131,220 @@ def test_kernel_insertion_order_is_the_plain_order(U):
     for r in range(score.shape[0]):
         assert _insertion_topk(score[r])[:topk] == \
             want[r, :topk].tolist(), r
+
+
+def _order_key_np(x: np.ndarray) -> np.ndarray:
+    bits = x.astype(np.float32).view(np.uint32).astype(np.int64)
+    return np.where(bits >= 1 << 31, bits ^ 0xFFFFFFFF, bits | 1 << 31)
+
+
+def _ranks_before(v, u, w, t, nan_aware):
+    if t < 0:
+        return True
+    if nan_aware and (np.isnan(v) or np.isnan(w)):
+        return bool(np.isnan(v) and (not np.isnan(w) or u < t))
+    return bool(v > w or (v == w and u < t))
+
+
+def _insert(vals, idx, v, u, nan_aware):
+    """The kernel's insertion keyed on (score descending, u ascending)."""
+    K = len(vals)
+    if not _ranks_before(v, u, vals[K - 1], idx[K - 1], nan_aware):
+        return
+    cv, ci, placed = v, u, False
+    for p in range(K):
+        if placed or _ranks_before(cv, ci, vals[p], idx[p], nan_aware):
+            vals[p], cv = cv, vals[p]
+            idx[p], ci = ci, idx[p]
+            placed = True
+
+
+def _walk_model(members, src, dsts, dev, dom, topk, K=8):
+    """placement.cu's walk instance step for step in Python: the block
+    stages the targets and sorts them by (order key of dev, u) unless
+    their deviations are already non-decreasing; each row walks that
+    order, stops at the first gain <= 0 or, once topk legal entries are
+    held, at the first gain strictly below the topk-th, appends a legal
+    entry after the ones held (gains never increase along the walk) or,
+    when it ties the last with a lower u, inserts it by (score, u), and
+    fills the -inf slots with the lowest u that hold no legal entry. Rows with a non-finite dev[src], and all
+    rows when a staged deviation is not finite, take every target with
+    the NaN-aware insertion. Returns (best, score, visits)."""
+    dev = dev.astype(np.float32)
+    U, one = len(dsts), np.float32(1.0)
+    ddev = dev[dsts]
+    finite = bool(np.isfinite(ddev).all())
+    ascending = all(not ddev[i] > ddev[i + 1] for i in range(U - 1))
+    order = (np.lexsort((np.arange(U), _order_key_np(ddev)))
+             if finite and not ascending else np.arange(U))
+    best = np.empty((len(src), topk), np.int32)
+    score = np.empty((len(src), topk), np.float32)
+    visits = np.empty(len(src), np.int32)
+    for r in range(len(src)):
+        s = int(src[r])
+        valid = (members[r] != NONE) & (members[r] != s)
+        mdom = np.where(valid, dom[np.clip(members[r], 0, len(dom) - 1)],
+                        T.MASKED_DOMAIN)
+        dsrc = dev[s]
+        vals, idx = [np.float32(-np.inf)] * K, [-1] * K
+        with np.errstate(invalid="ignore", over="ignore"):
+            if finite and np.isfinite(dsrc):
+                # held entries in slots :held, (last, lastu) the lowest
+                held, last, lastu, n = 0, None, None, U
+                for i, u in enumerate(order):
+                    u = int(u)
+                    g = (dsrc - ddev[u]) - one
+                    if not g > 0 or (held == topk and g < last):
+                        n = i
+                        break
+                    # a member equal to the target is the source or
+                    # shares its domain: 2S + 1 compares
+                    if dsts[u] == s or (mdom == dom[dsts[u]]).any():
+                        continue
+                    if held < topk:
+                        if held == 0 or not _ranks_before(g, u, last, lastu,
+                                                          False):
+                            vals[held], idx[held] = g, u   # goes last
+                        else:
+                            _insert(vals, idx, g, u, False)
+                        last, lastu = vals[held], idx[held]
+                        held += 1
+                    elif _ranks_before(g, u, last, lastu, False):
+                        _insert(vals, idx, g, u, False)   # ties the kth
+                        last, lastu = vals[topk - 1], idx[topk - 1]
+                have, u = held, 0
+                for p in range(have, topk):
+                    while True:
+                        n += 1
+                        if u not in idx[:have]:
+                            break
+                        u += 1
+                    idx[p] = u
+                    u += 1
+            else:
+                for u in order:
+                    g = (dsrc - ddev[u]) - one
+                    bad = (members[r] == dsts[u]).any() or \
+                        (mdom == dom[dsts[u]]).any()
+                    _insert(vals, idx, np.float32(-np.inf) if bad or g <= 0
+                            else g, int(u), True)
+                n = U
+        best[r], score[r], visits[r] = idx[:topk], vals[:topk], n
+    return best, score, visits
+
+
+def _walk_inputs(case: str, seed: int):
+    """Scorer inputs for the walk model: `_scorer_inputs` (dsts in random
+    order, so the block sorts) as they are, with dsts sorted by dev as
+    the balancer passes them, with integer deviations (ties), with
+    rounding-collapsed gains (dev[src] = 3e7, targets at deviations
+    0.125, 0.25, ... 1.0 listed out of deviation order: 0.25, 0.5 and
+    1.0 all give 30000000.0f), with every row illegal, or with the first 24 targets
+    in the walk order all in one domain that every row holds (long
+    walks)."""
+    ties = case in ("ties", "ties-sorted")
+    members, src, dsts, dev, dom = _scorer_inputs(
+        6, 64, seed=seed, ties=ties)
+    dev = dev.astype(np.float32)
+    if case == "collapsed":
+        rng = np.random.default_rng(seed)
+        dev[dsts] = rng.choice(np.float32(np.arange(1, 9) / 8), len(dsts))
+        dev[src[::2]] = np.float32(3.0e7)
+    if case == "all-illegal":
+        src[:] = int(np.argmin(dev))
+        members[:, 0] = src
+    if case == "long":
+        dev[src] = np.abs(dev[src]) + 50     # gains positive throughout
+        dsts = dsts[np.argsort(dev[dsts], kind="stable")]
+        dom = dom.copy()
+        dom[dsts[:24]] = 7
+        holder = int(np.setdiff1d(np.arange(len(dom)),
+                                  np.concatenate([dsts, src]))[0])
+        dom[holder] = 7
+        members[:-8, 1] = holder             # not the padding rows
+    if case.endswith("sorted"):
+        dsts = dsts[np.argsort(dev[dsts], kind="stable")]
+    return members, src, dsts, dev, dom
+
+
+WALK_CASES = ("random", "sorted", "ties", "ties-sorted", "collapsed",
+              "all-illegal", "long")
+
+
+@pytest.mark.parametrize("topk", range(1, 9))
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_walk_model_matches_plain_and_twin(case, topk):
+    members, src, dsts, dev, dom = _walk_inputs(case, seed=topk)
+    mb, ms, mv = _walk_model(members, src, dsts, dev, dom, topk)
+    tin = [torch.from_numpy(a) for a in (members, src, dsts, dev, dom)]
+    pb, ps = T.score_candidates_plain(*tin, topk)
+    assert np.array_equal(mb, pb.numpy()) and _same_scores(ms, ps.numpy())
+    jb, js = _twin_score(members, src, dsts, dev, dom, topk)
+    assert np.array_equal(mb, jb) and _same_scores(ms, js)
+    assert np.array_equal(mv, T.score_visits_plain(*tin, topk).numpy())
+    walked = np.isfinite(dev[src])
+    assert (mv[walked] <= len(dsts) + topk).all()
+    if case == "collapsed":
+        # equal gains met out of index order, and the walk still settles
+        big = dev[src] == np.float32(3.0e7)
+        assert (ms[big] == np.float32(3.0e7)).any()
+        assert (mv[big] < len(dsts)).all()
+    if case == "long":
+        assert (mv[:-8] >= 24).all()
+    if case == "all-illegal":
+        assert np.isneginf(ms).all() and (mv == topk).all()
+
+
+NONFINITE_CASES = ("inf target", "-inf target", "nan target", "inf source",
+                   "nan source", "-inf source")
+
+
+@pytest.mark.parametrize("case", NONFINITE_CASES)
+def test_walk_model_nonfinite_matches_plain(case):
+    # the twin's lax.top_k ranks a NaN with its sign bit set below -inf,
+    # torch.sort every NaN above every number: the plain version (the
+    # function the card kernel is held to) is the yardstick here
+    members, src, dsts, dev, dom = _walk_inputs("random", seed=11)
+    what, where = case.split()
+    val = {"inf": np.inf, "-inf": -np.inf, "nan": np.nan}[what]
+    if where == "target":
+        dev[dsts[[3, 17]]] = val
+    else:
+        dev[src[::3]] = val
+    tin = [torch.from_numpy(a) for a in (members, src, dsts, dev, dom)]
+    for topk in (1, 5, 8):
+        mb, ms, mv = _walk_model(members, src, dsts, dev, dom, topk)
+        pb, ps = T.score_candidates_plain(*tin, topk)
+        assert np.array_equal(mb, pb.numpy()), topk
+        assert np.array_equal(np.isnan(ms), np.isnan(ps.numpy()))
+        assert _same_scores(np.nan_to_num(ms, nan=7.0),
+                            np.nan_to_num(ps.numpy(), nan=7.0))
+        assert np.array_equal(mv, T.score_visits_plain(*tin, topk).numpy())
+        exhaustive = ~np.isfinite(dev[src]) | (where == "target")
+        assert (mv[exhaustive] == len(dsts)).all()
+
+
+def test_score_visits_for_the_scan_instance(monkeypatch):
+    # above WALK_MAX_TARGETS the scan instance takes every target
+    members, src, dsts, dev, dom = (torch.from_numpy(a) for a in
+                                    _scorer_inputs(6, 64, 5, False))
+    dev = dev.float()
+    with monkeypatch.context() as m:
+        m.setattr(T, "WALK_MAX_TARGETS", 63)
+        v = torch.zeros(len(src), dtype=torch.int32)
+        best, score = T.score_candidates(members, src, dsts, dev, dom, 8,
+                                         visits=v)
+        assert (v == 64).all()
+    v2 = torch.zeros(len(src), dtype=torch.int32)
+    best2, score2 = T.score_candidates(members, src, dsts, dev, dom, 8,
+                                       visits=v2)
+    assert torch.equal(best, best2) and torch.equal(score, score2)
+    assert torch.equal(v2, T.score_visits_plain(members, src, dsts, dev,
+                                                dom, 8))
+    assert int(v2.max()) < 64
+    with pytest.raises(ValueError, match="visits"):
+        T.score_candidates(members, src, dsts, dev, dom, 8,
+                           visits=torch.zeros(3, dtype=torch.int32))
 
 
 def test_score_candidates_refuses_bad_inputs():
