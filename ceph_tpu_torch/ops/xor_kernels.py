@@ -55,3 +55,23 @@ def make_xor_encoder(bitmatrix: np.ndarray, w: int):
                          f"of w={w}")
     return _make_fn(bm.tobytes(), *bm.shape, w)
 
+
+def xor_schedule_ref(bitmatrix: np.ndarray, w: int,
+                     data: np.ndarray) -> np.ndarray:
+    """Pure-numpy oracle for the XOR schedule (the jerasure_bitmatrix_
+    encode semantics), used by tests to pin the device kernels."""
+    bm = np.asarray(bitmatrix, dtype=np.uint8) & 1
+    data = np.asarray(data, np.uint8)
+    squeeze = data.ndim == 2
+    if squeeze:
+        data = data[None]
+    B, n_in, L = data.shape
+    rows, cols = bm.shape
+    pkt = L // w
+    x = data.reshape(B, cols, pkt)
+    out = np.zeros((B, rows, pkt), dtype=np.uint8)
+    for r in range(rows):
+        for c in np.nonzero(bm[r])[0]:
+            out[:, r, :] ^= x[:, c, :]
+    out = out.reshape(B, rows // w, L)
+    return out[0] if squeeze else out

@@ -1423,3 +1423,79 @@ class SimCluster:
                 raise AssertionError(f"data loss: {name}")
             ok += 1
         return ok
+
+
+def cluster_from_snapshot(snapshot: dict, device=None) -> SimCluster:
+    """Build a SimCluster on `device` (None: the CUDA device) from a
+    plain snapshot of another process's cluster (the twin's included),
+    so that the port's clients can read, overwrite and recover what was
+    written there. The snapshot holds numpy arrays, bytes, floats, ints,
+    strings, lists and dicts only:
+
+      "config":           SimCluster's keyword arguments (n_osds,
+                          profile, pg_num, osds_per_host, chunk_size,
+                          the heartbeat and down-out intervals, ...)
+      "osdmap":           bytes (OSDMap.encode): epoch, up/in, weights,
+                          up_thru, pg_temp, pg_num
+      "now":              float, the virtual clock
+      "alive":            bool array; "destroyed": [osd]
+      "last_heard":       float array (n_osds, n_osds)
+      "down_since":       {osd: float}
+      "pg_changed_epoch", "interval_start", "pg_primary": {ps: int}
+      "pgs":              {ps: {"acting": [osd], and the per-PG keys of
+                          ecbackend.backend_from_snapshot}}
+      "stores":           every OSD's collections, as in
+                          ecbackend.shards_from_snapshot
+      "snap_seq":         int; "snaps": {id: float}; "sm_snaps": [id];
+      "selfmanaged":      bool; "snapsets": {head: [[seq, birth]]};
+      "object_births":    {head: int}
+      "obj_kv":           {name: dict}, the object-class KV plane
+      "last_scrub", "last_deep_scrub": {ps: float}
+
+    Left out, as session or scheduler state a restarted cluster starts
+    anew: watches, op trackers, perf counters, the mClock queues, the
+    monitors' own log (every monitor is taken as up) and queued scrubs.
+    The snapshot is of a settled EC pool over MemStores: no backfill in
+    flight (a PG's old acting set under pg_temp would need its copy
+    job)."""
+    import copy
+
+    from .ecbackend import backend_from_snapshot, shards_from_snapshot
+    c = SimCluster(**snapshot["config"], device=device)
+    if not c.is_erasure or c.store_kind != "mem":
+        raise ValueError("cluster_from_snapshot takes an EC pool over "
+                         "MemStores")
+    c.osdmap = OSDMap.decode(bytes(snapshot["osdmap"]), device=c.device)
+    c.pg_num = c.osdmap.pools[1].pg_num
+    c.now = float(snapshot["now"])
+    c.alive = np.asarray(snapshot["alive"], dtype=bool).copy()
+    c.destroyed = {int(o) for o in snapshot["destroyed"]}
+    c.last_heard = np.asarray(snapshot["last_heard"], np.float64).copy()
+    c.down_since = {int(o): float(t)
+                    for o, t in snapshot["down_since"].items()}
+    for key, attr in (("pg_changed_epoch", "pg_changed_epoch"),
+                      ("interval_start", "interval_start"),
+                      ("pg_primary", "_pg_primary")):
+        setattr(c, attr, {int(ps): int(v)
+                          for ps, v in snapshot[key].items()})
+    c.cluster = shards_from_snapshot(snapshot["stores"])
+    c.pgs = {int(ps): backend_from_snapshot(
+                 pg, c.profile, f"1.{int(ps)}", [int(o) for o in
+                                                  pg["acting"]],
+                 chunk_size=c.chunk_size, device=c.device,
+                 cluster=c.cluster)
+             for ps, pg in snapshot["pgs"].items()}
+    c.snap_seq = int(snapshot["snap_seq"])
+    c.snaps = {int(s): float(t) for s, t in snapshot["snaps"].items()}
+    c.sm_snaps = {int(s) for s in snapshot["sm_snaps"]}
+    c.selfmanaged = bool(snapshot["selfmanaged"])
+    c.snapsets = {name: [(int(seq), int(birth)) for seq, birth in ss]
+                  for name, ss in snapshot["snapsets"].items()}
+    c.object_births = {name: int(seq)
+                       for name, seq in snapshot["object_births"].items()}
+    c.obj_kv = copy.deepcopy(snapshot["obj_kv"])
+    c.last_scrub = {int(ps): float(t)
+                    for ps, t in snapshot["last_scrub"].items()}
+    c.last_deep_scrub = {int(ps): float(t)
+                         for ps, t in snapshot["last_deep_scrub"].items()}
+    return c

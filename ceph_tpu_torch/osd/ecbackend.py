@@ -2507,25 +2507,14 @@ class RecoveryRunner:
 
 # -- carried state ---------------------------------------------------------------
 
-def backend_from_snapshot(snapshot: dict, profile: dict | str, pg: str,
-                          acting: list[int], chunk_size: int | None = None,
-                          perf=None, device=None) -> ECBackend:
-    """Build a ShardSet and an ECBackend over it from a plain snapshot,
-    so that the port can read, recover and scrub what another process
-    (the twin included) wrote. The snapshot holds only numpy arrays,
-    bytes, ints and dicts:
-
-      "stores":          {osd: {cid: {name: {"data": u8 array,
-                                             "attrs": {key: bytes},
-                                             "omap": {bytes: bytes}}}}}
-      "object_sizes":    {name: int}
-      "object_versions": {name: int}
-      "pg_log":          bytes (PGLog.encode)
-      "shard_applied":   {slot: int}
-      "rmw_seq":         int
-    """
-    cluster = ShardSet()
-    for osd, colls in snapshot["stores"].items():
+def shards_from_snapshot(stores: dict, cluster: ShardSet | None = None
+                         ) -> ShardSet:
+    """Fill a ShardSet (a new one by default) from a snapshot's stores,
+    {osd: {cid: {name: {"data": u8 array, "attrs": {key: bytes},
+    "omap": {bytes: bytes}}}}}; a collection without objects is
+    created all the same."""
+    cluster = ShardSet() if cluster is None else cluster
+    for osd, colls in stores.items():
         t = Transaction()
         for cid, objs in colls.items():
             t.create_collection(cid)
@@ -2539,8 +2528,35 @@ def backend_from_snapshot(snapshot: dict, profile: dict | str, pg: str,
                     t.omap_set(cid, name, {bytes(k): bytes(v) for k, v
                                            in obj["omap"].items()})
         cluster.osd(int(osd)).queue_transaction(t)
+    return cluster
+
+
+def backend_from_snapshot(snapshot: dict, profile: dict | str, pg: str,
+                          acting: list[int], chunk_size: int | None = None,
+                          perf=None, device=None,
+                          cluster: ShardSet | None = None) -> ECBackend:
+    """Build a ShardSet and an ECBackend over it from a plain snapshot,
+    so that the port can read, recover and scrub what another process
+    (the twin included) wrote. The snapshot holds only numpy arrays,
+    bytes, ints and dicts:
+
+      "stores":          {osd: {cid: {name: {"data": u8 array,
+                                             "attrs": {key: bytes},
+                                             "omap": {bytes: bytes}}}}}
+      "object_sizes":    {name: int}
+      "object_versions": {name: int}
+      "pg_log":          bytes (PGLog.encode)
+      "shard_applied":   {slot: int}
+      "rmw_seq":         int
+
+    Given `cluster`, a ShardSet that already holds the stores (a whole
+    cluster's, see osd/cluster.py::cluster_from_snapshot), the backend
+    joins it as it is (no collection made) and "stores" is not read."""
+    shared = cluster is not None
+    if not shared:
+        cluster = shards_from_snapshot(snapshot["stores"])
     be = ECBackend(profile, pg, acting, cluster, chunk_size=chunk_size,
-                   perf=perf, device=device)
+                   perf=perf, ensure_collections=not shared, device=device)
     be.object_sizes = {n: int(v)
                        for n, v in snapshot["object_sizes"].items()}
     be.object_versions = {n: int(v)

@@ -115,9 +115,28 @@ Phases, each of which fails loudly (exit code 1, no result line):
      than they are given and read back exact after a remount. It
      fails unless the native library built in phase 1 serves TinDB's
      CRC32C on SSE4.2. Host-bound by design (a 32 KiB cache: every
-     read a pread).
-Phases 3, 5, 7, 8, 9 and 11 print the CRC32C kernel's launches and fail
-if there are none; phase 9 also needs XXH32, XXH64 and gf_apply
+     read a pread);
+ 12. the client tier over phase 7's cluster, through the entry points
+     users call: rados bench's defaults (-b 4194304 -t 16), 256 x 4 MiB
+     through IoCtx.aio_write_full (traced for the device's idle share)
+     and aio_read, 16 in flight; a 1 GiB RBD image at Ceph's default
+     layout (order 22, stripe_count 1) written whole in 4 MiB writes,
+     then 2,048 fio-style random 4 KiB writes at 4 KiB-aligned seeded
+     offsets with snap_create after 1,024 and, after 1,536, the primary
+     OSD of a PG holding image objects killed: reads in the gap served
+     degraded (op_degraded, decode launches), the map marks it down and
+     later ops retarget (op_resend); the head and the snapshot read
+     back; FsClient at the JAX package's layout, a 256 MiB file in 4 MiB
+     writes and a directory of 2 x frag_split_threshold files that must
+     split; RGW, 64 x 1 MiB objects and a multipart upload of 8 x 8 MiB,
+     a request signed through rgw/auth accepted and a tampered one
+     refused; then a tick past down_out_interval (out, remap,
+     recovery), every byte read again and a clean deep scrub of every
+     PG. Every read is held byte for byte against a host model; it
+     fails unless gf_apply launched the 4 KiB overwrites' delta shape
+     (1, 3, 4096) and a decode, and the CRC32C kernel launched.
+Phases 3, 5, 7, 8, 9, 11 and 12 print the CRC32C kernel's launches and
+fail if there are none; phase 9 also needs XXH32, XXH64 and gf_apply
 launches, phase 10 a scorer launch a round.
 Phase 4 also times the checksum kernels at the main path's shapes
 (CRC32C over 256 and 352 rows of 512 KiB, the fused write's and the
@@ -142,7 +161,7 @@ ragged RMW delta, LRC's global layer and local repair, Clay's encode,
 repair and two-loss decode and SHEC's encode at the shapes of phase
 8): ms per call, device ms per launch from a trace that must show
 every launch, host microseconds per call, beside its plain version and
-impl=mxu. Phases 3, 5, 7, 8 and 11 print gf_apply's launches by (k,
+impl=mxu. Phases 3, 5, 7, 8, 11 and 12 print gf_apply's launches by (k,
 m, L, vec).
 
     python3 chip_smoke.py --gf-times
@@ -172,6 +191,11 @@ of the 2S = 6 instances. Given an older placement.cu (its C entry
 score_candidates has kept its signature, e.g. `git show
 <commit>:ceph_tpu_torch/mgr/csrc/placement.cu` into a file), it builds
 that too, side by side, and times it on the same inputs.
+
+    python3 chip_smoke.py --client
+
+builds gf_apply.cu and csum.cu and runs phase 12 alone, with its gates,
+then prints the card and one JSON object of its results.
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
 
@@ -223,6 +247,25 @@ CLUSTER_PGS = 64
 CLUSTER_OBJECTS = 256
 CLUSTER_MORE = 32
 # phase 8: BASELINE configs #3 and #4 (and SHEC) through ECBackend
+# phase 12, the client tier: rados bench's defaults (-b 4194304 -t 16),
+# an RBD image at Ceph's default layout (order 22: 4 MiB objects,
+# stripe_unit = object size, stripe_count 1) and fio's randwrite bs=4k,
+# a CephFS file in 4 MiB writes, RGW objects and a multipart upload
+# (S3's smallest part is 5 MiB)
+RADOS_OBJECTS = 256
+RADOS_INFLIGHT = 16
+RBD_IMAGE = 1 << 30
+RBD_OBJECT = 1 << 22
+RBD_RANDOM = 2048
+RBD_BLOCK = 4096
+FS_FILE = 256 << 20
+FS_WRITE = 4 << 20
+FS_SPLIT = 128               # FsClient's frag_split_threshold default
+RGW_OBJECTS = 64
+RGW_OBJECT = 1 << 20
+RGW_PARTS = 8
+RGW_PART = 8 << 20
+
 LRC_PROFILE = "plugin=lrc k=8 m=4 l=4"
 CLAY_PROFILE = "plugin=clay k=8 m=4 d=11"
 SHEC_PROFILE = "plugin=shec k=4 m=3 c=2"
@@ -2714,6 +2757,344 @@ def store_path(torch, dev, native_lib: Path) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 12
+
+def decode_launches(shapes) -> int:
+    """gf_apply launches that decode or rebuild at the main geometry: k
+    survivor rows in, fewer rows out than the encode's m."""
+    return sum(n for (k, m, _L, _vec), n in shapes.items()
+               if k == K and m < M)
+
+
+def client_path(torch, dev) -> dict:
+    """The client tier over the card's EC pool (phase 7's cluster): rados
+    bench's 256 x 4 MiB through aio_write_full and aio_read, 16 in flight
+    (the write traced); a 1 GiB RBD image at Ceph's default layout
+    written whole, then fio-style 4 KiB random writes with a snapshot
+    half way and, three quarters of the way, the primary OSD of a PG
+    holding image objects killed: reads in the gap served degraded, the
+    map marks it down, later ops retarget; the head and the snapshot
+    read back; a CephFS file in 4 MiB writes and a directory that must
+    split; RGW objects, a multipart upload and a signed request; then a
+    tick past down_out_interval (out, remap, recovery), every byte read
+    again and a deep scrub of every PG. Every read is held byte for
+    byte against a host model; any failed op fails the phase."""
+    import collections
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceph_tpu_torch.client.rados import Rados
+    from ceph_tpu_torch.client.rbd import RBD
+    from ceph_tpu_torch.fs.client import FsClient
+    from ceph_tpu_torch.ops import gf_kernel as G
+    from ceph_tpu_torch.osd.cluster import SimCluster
+    from ceph_tpu_torch.rgw.auth import (AuthedGateway, S3Client,
+                                         SignatureDoesNotMatch, UserStore,
+                                         amz_date, sign)
+    from ceph_tpu_torch.rgw.gateway import Gateway
+
+    t_phase = time.perf_counter()
+    c = SimCluster(n_osds=CLUSTER_OSDS, osds_per_host=CLUSTER_PER_HOST,
+                   pg_num=CLUSTER_PGS, profile=PROFILE,
+                   chunk_size=OBJECT_SIZE // K, **entry_device(dev))
+    devices = {pg.device for pg in c.pgs.values()}
+    if c.device.type != dev.type or devices != {c.device} \
+            or c.osdmap.device != c.device \
+            or c.pgs[0].coder.impl != "pallas" or c.pool_size != K + M:
+        fail(f"phase 12: cluster on {c.device}, backends on {devices}, "
+             f"mapper on {c.osdmap.device}, impl {c.pgs[0].coder.impl}")
+    rados = Rados(c, aio_threads=RADOS_INFLIGHT)
+    io = rados.open_ioctx()
+    perf = rados._objecter.perf
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    out: dict = {}
+
+    def made_on_card(rows: int, n: int) -> np.ndarray:
+        return torch.randint(0, 256, (rows, n), dtype=torch.uint8,
+                             device=dev, generator=gen).cpu().numpy()
+
+    def same(label: str, got: bytes, want: np.ndarray) -> None:
+        if len(got) != want.size or not np.array_equal(
+                np.frombuffer(got, np.uint8), want.reshape(-1)):
+            fail(f"phase 12: {label}: the bytes read differ from those "
+                 f"written")
+
+    def windowed(submit, items) -> list:
+        """submit(item) -> Completion, RADOS_INFLIGHT in flight; the
+        results in order (a failed op fails the phase)."""
+        window: collections.deque = collections.deque()
+        results = []
+        try:
+            for item in items:
+                if len(window) == RADOS_INFLIGHT:
+                    results.append(window.popleft().get_return_value())
+                window.append(submit(item))
+            while window:
+                results.append(window.popleft().get_return_value())
+        except Exception as e:  # noqa: BLE001 — any failed op fails
+            fail(f"phase 12: an aio op failed: {e!r}")
+        return results
+
+    # -- librados: rados bench -b 4194304 -t 16, write then read --------
+    names = [f"benchmark_data_{i:04d}" for i in range(RADOS_OBJECTS)]
+    rows = made_on_card(RADOS_OBJECTS, OBJECT_SIZE)
+    gbytes = RADOS_OBJECTS * OBJECT_SIZE / 1e9
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        wrote = windowed(lambda i: io.aio_write_full(names[i], rows[i]),
+                         range(RADOS_OBJECTS))
+        torch.cuda.synchronize()
+        t_write = time.perf_counter() - t0
+    if wrote != [OBJECT_SIZE] * RADOS_OBJECTS:
+        fail(f"phase 12: aio_write_full returned {set(wrote)}")
+    busy = device_busy_s(prof)
+    t0 = time.perf_counter()
+    got = windowed(io.aio_read, names)
+    t_read = time.perf_counter() - t0
+    for i, g in enumerate(got):
+        same(f"aio_read {names[i]}", g, rows[i])
+    out["rados"] = {"objects": RADOS_OBJECTS, "in_flight": RADOS_INFLIGHT,
+                    "write_s": t_write, "write_gbps": gbytes / t_write,
+                    "read_s": t_read, "read_gbps": gbytes / t_read,
+                    "write_device_busy_s": busy,
+                    "write_idle_share": idle_share(busy, t_write)}
+    log(f"  librados: {RADOS_OBJECTS} x {OBJECT_SIZE >> 20} MiB, "
+        f"{RADOS_INFLIGHT} in flight: write {gbytes / t_write:.4f} GB/s "
+        f"(traced), read {gbytes / t_read:.4f} GB/s (host clock); the "
+        f"write's device busy {show(busy)} s, idle share "
+        f"{show(idle_share(busy, t_write))} (torch.profiler)")
+
+    # -- RBD: a 1 GiB image, order 22, written whole, then 4 KiB random
+    #    writes with a snapshot and a primary's death among them --------
+    rbd = RBD(io, stripe_unit=RBD_OBJECT, stripe_count=1,
+              object_size=RBD_OBJECT)
+    img = rbd.create("bench", RBD_IMAGE)
+    model = made_on_card(RBD_IMAGE // RBD_OBJECT, RBD_OBJECT).reshape(-1)
+    t0 = time.perf_counter()
+    for off in range(0, RBD_IMAGE, RBD_OBJECT):
+        img.write(off, model[off:off + RBD_OBJECT].tobytes())
+    t_full = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 12)
+    offs = rng.integers(0, RBD_IMAGE // RBD_BLOCK, RBD_RANDOM) * RBD_BLOCK
+    blocks = rng.integers(0, 256, (RBD_RANDOM, RBD_BLOCK), dtype=np.uint8)
+    snap_at, kill_at = RBD_RANDOM // 2, RBD_RANDOM * 3 // 4
+    t_rand = 0.0
+    for i, off in enumerate(int(o) for o in offs):
+        if i == snap_at:
+            img.snap_create("s1")
+            snap_model = model.copy()
+        if i == kill_at:
+            q = off // RBD_OBJECT
+            ps = c.locate(f"rbd_data.bench.{q:016x}")
+            victim = c.osdmap.pg_to_up_acting_osds(1, ps)[3]
+            c.kill_osd(victim)
+            deg0 = perf.get("op_degraded")
+            same("RBD read, primary dead", img.read(q * RBD_OBJECT,
+                                                    RBD_OBJECT),
+                 model[q * RBD_OBJECT:(q + 1) * RBD_OBJECT])
+            in_pg = [n for n in names if c.locate(n) == ps]
+            for n, g in io.read_many(in_pg).items():
+                same(f"read_many {n}, primary dead", g,
+                     rows[names.index(n)])
+            decodes = decode_launches(gf_counts(G)[1])
+            if perf.get("op_degraded") == deg0 or decodes == 0:
+                fail(f"phase 12: reads with osd.{victim} dead: "
+                     f"op_degraded {perf.get('op_degraded') - deg0}, "
+                     f"decode launches {decodes}")
+            c.tick(30)
+            if c.osdmap.osd_up[victim]:
+                fail(f"phase 12: osd.{victim} killed but still up")
+            out["victim"] = {"osd": victim, "pg": ps,
+                             "objects_in_pg": len(in_pg),
+                             "decode_launches_in_gap": decodes}
+            log(f"  osd.{victim}, primary of PG {ps}, killed after "
+                f"{kill_at} random writes: image object {q} and "
+                f"{len(in_pg)} rados objects read degraded "
+                f"({decodes} decode launches), then marked down")
+        t0 = time.perf_counter()
+        img.write(off, blocks[i].tobytes())
+        t_rand += time.perf_counter() - t0
+        model[off:off + RBD_BLOCK] = blocks[i]
+
+    def image_check(label: str, want: np.ndarray) -> float:
+        t0 = time.perf_counter()
+        for off in range(0, RBD_IMAGE, 16 * RBD_OBJECT):
+            n = min(16 * RBD_OBJECT, RBD_IMAGE - off)
+            same(f"{label} at {off}", img.read(off, n), want[off:off + n])
+        return time.perf_counter() - t0
+    t_head = image_check("RBD head", model)
+    img.set_snap("s1")
+    t_snap = image_check("RBD snapshot s1", snap_model)
+    img.set_snap(None)
+    out["rbd"] = {"image_bytes": RBD_IMAGE, "full_write_s": t_full,
+                  "full_write_gbps": RBD_IMAGE / t_full / 1e9,
+                  "random_writes": RBD_RANDOM, "random_s": t_rand,
+                  "random_iops": RBD_RANDOM / t_rand,
+                  "head_read_s": t_head, "snap_read_s": t_snap,
+                  "clones": sum(len(v) for v in c.snapsets.values())}
+    log(f"  RBD: {RBD_IMAGE >> 20} MiB image written in {t_full:.3f} s "
+        f"({RBD_IMAGE / t_full / 1e9:.4f} GB/s), {RBD_RANDOM} x 4 KiB "
+        f"random writes at {RBD_RANDOM / t_rand:.1f} ops/s (host clock), "
+        f"{out['rbd']['clones']} clones after the snapshot; head read "
+        f"{t_head:.3f} s, snapshot read {t_snap:.3f} s, both exact")
+
+    # -- CephFS: one 256 MiB file in 4 MiB writes; a directory split ----
+    fs = FsClient(io, frag_split_threshold=FS_SPLIT)
+    fs.mkdir("/bench")
+    fs.create("/bench/file")
+    fdata = made_on_card(FS_FILE // FS_WRITE, FS_WRITE)
+    t0 = time.perf_counter()
+    for i in range(FS_FILE // FS_WRITE):
+        fs.write("/bench/file", fdata[i].tobytes(), offset=i * FS_WRITE)
+    t_fs_w = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(FS_FILE // FS_WRITE):
+        same(f"CephFS read {i}", fs.read("/bench/file", length=FS_WRITE,
+                                         offset=i * FS_WRITE), fdata[i])
+    t_fs_r = time.perf_counter() - t0
+    fs.mkdir("/bench/dir")
+    for i in range(2 * FS_SPLIT):
+        fs.create(f"/bench/dir/f{i:04d}")
+    frags = fs.frag_info("/bench/dir")
+    if frags["bits"] < 1 or frags["dentries"] != 2 * FS_SPLIT:
+        fail(f"phase 12: a directory of {2 * FS_SPLIT} files: {frags}")
+    out["cephfs"] = {"file_bytes": FS_FILE, "write_s": t_fs_w,
+                     "write_gbps": FS_FILE / t_fs_w / 1e9,
+                     "read_s": t_fs_r, "read_gbps": FS_FILE / t_fs_r / 1e9,
+                     "dir_files": 2 * FS_SPLIT, "frag_bits": frags["bits"]}
+    log(f"  CephFS: {FS_FILE >> 20} MiB file in {FS_WRITE >> 20} MiB "
+        f"writes {FS_FILE / t_fs_w / 1e9:.4f} GB/s, read "
+        f"{FS_FILE / t_fs_r / 1e9:.4f} GB/s (host clock); "
+        f"{2 * FS_SPLIT} files split the directory into {frags['frags']} "
+        f"frags")
+
+    # -- RGW: 64 x 1 MiB, a multipart upload of 8 x 8 MiB, a signature --
+    gw = Gateway(io)
+    gw.create_bucket("bench")
+    robjs = made_on_card(RGW_OBJECTS, RGW_OBJECT)
+    parts = made_on_card(RGW_PARTS, RGW_PART)
+    t0 = time.perf_counter()
+    for i in range(RGW_OBJECTS):
+        gw.put_object("bench", f"obj{i:03d}", robjs[i].tobytes())
+    up = gw.initiate_multipart("bench", "multi")
+    for j in range(RGW_PARTS):
+        gw.upload_part("bench", "multi", up, j + 1, parts[j].tobytes())
+    gw.complete_multipart("bench", "multi", up)
+    t_rgw_w = time.perf_counter() - t0
+
+    def rgw_check(label: str) -> float:
+        t0 = time.perf_counter()
+        for i in range(RGW_OBJECTS):
+            same(f"{label} obj{i:03d}", gw.get_object("bench",
+                                                      f"obj{i:03d}"),
+                 robjs[i])
+        same(f"{label} multipart", gw.get_object("bench", "multi"), parts)
+        return time.perf_counter() - t0
+    t_rgw_r = rgw_check("RGW get")
+    rgw_bytes = RGW_OBJECTS * RGW_OBJECT + RGW_PARTS * RGW_PART
+    users = UserStore()
+    ak, sk = users.create_user("bench")
+    agw = AuthedGateway(gw, users)
+    agw.adopt_bucket("bench", "bench")
+    same("signed get", S3Client(agw, ak, sk).get_object("bench", "obj000"),
+         robjs[0])
+    date = amz_date(time.time())
+    try:
+        agw.call(ak, date, sign(sk, date, "get_object", "bench", "obj001",
+                                "n1", {}, b""), "get_object", "bench",
+                 "obj000", nonce="n1")
+        fail("phase 12: a request signed for another key was accepted")
+    except SignatureDoesNotMatch:
+        pass
+    out["rgw"] = {"bytes": rgw_bytes, "write_s": t_rgw_w,
+                  "write_gbps": rgw_bytes / t_rgw_w / 1e9,
+                  "read_s": t_rgw_r, "read_gbps": rgw_bytes / t_rgw_r / 1e9}
+    log(f"  RGW: {RGW_OBJECTS} x {RGW_OBJECT >> 20} MiB and a multipart "
+        f"upload of {RGW_PARTS} x {RGW_PART >> 20} MiB: put "
+        f"{rgw_bytes / t_rgw_w / 1e9:.4f} GB/s, get "
+        f"{rgw_bytes / t_rgw_r / 1e9:.4f} GB/s (host clock); a signed "
+        f"request accepted, a tampered one refused")
+
+    # -- out -> remap -> recovery; everything read again; deep scrub ----
+    rec0 = c.perf.get("recovered_objects")
+    dec0 = decode_launches(gf_counts(G)[1])
+    t0 = time.perf_counter()
+    c.tick(c.down_out_interval)
+    torch.cuda.synchronize()
+    t_rec = time.perf_counter() - t0
+    recovered = c.perf.get("recovered_objects") - rec0
+    holders = [ps for ps, pg in c.pgs.items() if victim in pg.acting]
+    h = c.health()
+    if c.osdmap.osd_weight[victim] != 0 or holders or recovered == 0 \
+            or h["pgs_degraded"] \
+            or decode_launches(gf_counts(G)[1]) == dec0:
+        fail(f"phase 12 after the out: weight "
+             f"{int(c.osdmap.osd_weight[victim])}, PGs still on "
+             f"osd.{victim}: {holders}, recovered {recovered}, "
+             f"{h['pgs_degraded']} degraded PGs")
+    t0 = time.perf_counter()
+    for i, g in enumerate(windowed(io.aio_read, names)):
+        same(f"aio_read {names[i]} after recovery", g, rows[i])
+    image_check("RBD head after recovery", model)
+    img.set_snap("s1")
+    image_check("RBD snapshot after recovery", snap_model)
+    img.set_snap(None)
+    for i in range(FS_FILE // FS_WRITE):
+        same(f"CephFS read {i} after recovery",
+             fs.read("/bench/file", length=FS_WRITE, offset=i * FS_WRITE),
+             fdata[i])
+    rgw_check("RGW get after recovery")
+    t_reread = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for ps, pg in c.pgs.items():
+        rep = pg.deep_scrub(dead_osds=c._dead_osds())
+        if rep["inconsistent"]:
+            fail(f"phase 12: deep scrub of PG {ps}: {rep['inconsistent']}")
+    t_scrub = time.perf_counter() - t0
+    rados.shutdown()
+    counts = {key: perf.get(key) for key in ("op_send", "op_resend",
+                                             "map_refresh", "op_degraded")}
+    if counts["op_resend"] == 0 or counts["op_degraded"] == 0:
+        fail(f"phase 12: the Objecter's counters {counts}")
+    out.update({"recovery_tick_s": t_rec, "recovered_objects": recovered,
+                "reread_s": t_reread, "deep_scrub_s": t_scrub,
+                "objecter": counts,
+                "phase_s": time.perf_counter() - t_phase})
+    log(f"  out -> remap -> recover: {recovered} objects in {t_rec:.3f} s; "
+        f"every byte read again exact in {t_reread:.3f} s; deep scrub of "
+        f"{len(c.pgs)} PGs clean in {t_scrub:.3f} s")
+    log(f"  the Objecter: {json.dumps(counts)}")
+    log(f"  phase 12 wall time {out['phase_s']:.1f} s; {card_line()}")
+    return out
+
+
+def client_phase(torch, dev) -> tuple:
+    """Phase 12 with its launch counts set to 0 before and read after;
+    fails unless gf_apply (the 4 KiB overwrites' delta shape and a decode
+    among its launches) and the CRC32C kernel launched."""
+    from ceph_tpu_torch.ops import gf_kernel as G
+    gf_set(G)
+    csum_set()
+    client = client_path(torch, dev)
+    launches, shapes = gf_counts(G)
+    log(f"  gf_apply launches in phase 12: {launches}, by (k,m,L,vec): "
+        f"{json.dumps(by_shape(shapes))}")
+    deltas = sum(n for (k, m, L, _v), n in shapes.items()
+                 if k < K and m == M and L == RBD_BLOCK)
+    if launches == 0 or deltas == 0 or decode_launches(shapes) == 0:
+        fail(f"phase 12: gf_apply launches {launches}, of the 4 KiB delta "
+             f"shape {deltas}, decodes {decode_launches(shapes)}")
+    crc = crc_launches("phase 12")
+    client.update({"gf_apply_launches": launches,
+                   "gf_apply_delta_4k_launches": deltas,
+                   "gf_apply_decode_launches": decode_launches(shapes),
+                   "crc32c_launches": crc})
+    return client, launches, shapes, crc
+
+
 def build_all() -> Path:
     """Phase 1: build every kernel source, one nvcc each, and the native
     host library (g++, always anew: a library copied in from another
@@ -2788,9 +3169,22 @@ def main() -> None:
         log(card_line())
         log(json.dumps({"score_times": rows}))
         return
+    if sys.argv[1:] == ["--client"]:
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ceph_tpu_torch.csum import kernels as C
+        with ThreadPoolExecutor(2) as pool:
+            for job in [pool.submit(G.build), pool.submit(C.build)]:
+                job.result()
+        log("phase 12: the client tier over the card's EC pool")
+        client = client_phase(torch, dev)[0]
+        log(card_line())
+        log(json.dumps({"client": client}))
+        return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: none, --gf-times, "
-             f"--crc-times or --score-times [PARENT_PLACEMENT_CU]")
+             f"--crc-times, --score-times [PARENT_PLACEMENT_CU] or "
+             f"--client")
     native_lib = build_all()
 
     log("phase 2: kernels against their plain versions")
@@ -2881,21 +3275,27 @@ def main() -> None:
         fail("the TinStore cluster path never launched gf_apply")
     crc11 = crc_launches("phase 11")
     log("store " + json.dumps(store))
+
+    log("phase 12: the client tier over the card's EC pool")
+    client, launches12, shapes12, crc12 = client_phase(torch, dev)
+    log("client " + json.dumps(client))
     kernels = [{
         "name": "gf_apply",
         "route": "cuda",
         "source": "ceph_tpu_torch/ops/csrc/gf_apply.cu",
         "replaces": "ceph_tpu/ops/pallas_gf.py:103",
         "launches": launches + launches5 + launches7 + launches8
-        + launches9 + launches11,
+        + launches9 + launches11 + launches12,
         "launches_by_phase": {"3": launches, "5": launches5,
                               "7": launches7, "8": launches8,
-                              "9": launches9, "11": launches11},
+                              "9": launches9, "11": launches11,
+                              "12": launches12},
         "launches_by_shape": {"3": by_shape(shapes3),
                               "5": backend["gf_apply_by_shape"],
                               "7": by_shape(shapes7),
                               "8": by_shape(shapes8),
-                              "11": by_shape(shapes11)},
+                              "11": by_shape(shapes11),
+                              "12": by_shape(shapes12)},
         "max_abs_err": gf_check["max_abs_err"],
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -2909,7 +3309,7 @@ def main() -> None:
     }]
     csum = times["csum"]
     crc_phases = {"3": crc3, "5": crc5, "7": crc7, "8": crc8,
-                  "9": by9["crc32c"], "11": crc11}
+                  "9": by9["crc32c"], "11": crc11, "12": crc12}
     for name, replaces, main_row, by_phase, extra in (
             ("crc32c", "ceph_tpu/csum/kernels.py:113", "crc32c_256x512KiB",
              crc_phases, tuple(k for k in csum if k.startswith("crc32c")

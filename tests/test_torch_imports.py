@@ -42,7 +42,10 @@ def test_port_has_the_slice_modules():
                  "osd.cluster", "ec.lrc", "ec.clay", "ec.shec",
                  "csum.checksummer", "ops.streaming", "utils.nvcc",
                  "crush.compiler", "mgr.balancer", "mgr.placement", "kv",
-                 "kv.interface", "kv.tindb", "osd.tinstore", "native"):
+                 "kv.interface", "kv.tindb", "osd.tinstore", "native",
+                 "utils.throttle", "client", "client.objecter",
+                 "client.rados", "client.rbd", "fs", "fs.client", "rgw",
+                 "rgw.gateway", "rgw.auth"):
         assert f"ceph_tpu_torch.{name}" in mods, name
 
 

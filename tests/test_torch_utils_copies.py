@@ -32,7 +32,10 @@ COPIES = ["utils/perf_counters.py", "utils/profiler.py",
           "osd/peering.py", "osd/scheduler.py", "osd/objclass.py",
           "mgr/pg_autoscaler.py", "crush/compiler.py", "mgr/balancer.py",
           "kv/interface.py", "kv/tindb.py", "kv/__init__.py",
-          "osd/tinstore.py"]
+          "osd/tinstore.py", "utils/throttle.py", "client/__init__.py",
+          "client/objecter.py", "client/rados.py", "client/rbd.py",
+          "fs/__init__.py", "fs/client.py", "rgw/__init__.py",
+          "rgw/gateway.py", "rgw/auth.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
