@@ -18,9 +18,10 @@
 //   gain     = (dev[src[r]] - dev[dsts[u]]) - 1.0f, in float32
 //   score    = -inf if illegal or gain <= 0, else gain
 // and the row's output is the top `topk` <= 8 (u, score) pairs in the
-// order of a stable descending sort: score descending (a NaN above
-// every number, all NaNs alike, as torch.sort ranks them), ties to the
-// lower u, -inf slots filled in ascending u.
+// order of a stable descending sort: score descending in IEEE 754's
+// total order, as lax.top_k ranks them (a NaN with its sign bit set
+// below -inf, one without above +inf), ties to the lower u, -inf slots
+// filled in ascending u.
 //
 // Why a row need not look at every target. For a fixed row the gain
 // never increases as dev[dsts[u]] grows: both subtractions round
@@ -94,16 +95,24 @@ constexpr int kScanThreads = 128;
 constexpr int kWalkThreads = 256;
 constexpr int kMaxWalk = 4096;             // walk: targets staged at most
 
+// Order-preserving bits of a float: IEEE 754's total order (-NaN <
+// -inf < ... < -0 < +0 < ... < +inf < +NaN) as unsigned compares.
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned b = __float_as_uint(f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
 // (v, u) ranks before the slot (w, t): a greater score, or an equal one
-// with a lower u; an empty slot (t < 0) ranks last. NAN_AWARE ranks a
-// NaN above every number and all NaNs alike (the walk meets no NaN).
+// with a lower u; an empty slot (t < 0) ranks last. NAN_AWARE compares
+// in the total order, so a NaN ranks by its sign and bits (the walk
+// meets no NaN, and no score is +-0: a gain <= 0 scores -inf).
 template <bool NAN_AWARE>
 __device__ __forceinline__ bool ranks_before(float v, int u, float w,
                                              int t) {
   if (t < 0) return true;
   if (NAN_AWARE) {
-    const bool vn = isnan(v), wn = isnan(w);
-    if (vn | wn) return vn && (!wn || u < t);
+    const unsigned kv = order_key(v), kw = order_key(w);
+    return kv > kw || (kv == kw && u < t);
   }
   return v > w || (v == w && u < t);
 }
@@ -212,13 +221,6 @@ __device__ __forceinline__ void store_row(const float (&vals)[kTopK],
       s[p] = vals[p];
     }
   }
-}
-
-// Order-preserving bits of a float: a < b (as numbers, -0 before +0)
-// iff key(a) < key(b) as unsigned.
-__device__ __forceinline__ unsigned order_key(float f) {
-  const unsigned b = __float_as_uint(f);
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
 struct __align__(16) Target {

@@ -141,9 +141,12 @@ def score_candidates_plain(members: torch.Tensor, src: torch.Tensor,
 
     Returns (best (N, topk) int32, score (N, topk) float32): per
     candidate the indices into dsts of the topk highest-gain LEGAL
-    targets, score -inf past the legal count, in `lax.top_k`'s order
-    (ties to the lower index, -inf slots in index order: a stable
-    descending sort; `torch.topk` orders ties otherwise). Legality:
+    targets, score -inf past the legal count, in `lax.top_k`'s order:
+    XLA's total order of floats (a NaN with its sign bit set below
+    -inf, one without above +inf; `torch.sort` ranks every NaN above
+    every number), ties to the lower index and -inf slots in index
+    order (a stable descending sort of `_order_key`; `torch.topk`
+    orders ties otherwise). Legality:
     target not already a member of the PG, and its failure domain
     serves no OTHER shard (the source device's own occurrences are
     masked out)."""
@@ -159,13 +162,15 @@ def score_candidates_plain(members: torch.Tensor, src: torch.Tensor,
     score = torch.where(clash | member | (gain <= 0.0),
                         torch.tensor(float("-inf"), dtype=gain.dtype,
                                      device=gain.device), gain)
-    vals, best = torch.sort(score, dim=1, descending=True, stable=True)
-    return best[:, :topk].to(torch.int32), vals[:, :topk].contiguous()
+    best = torch.sort(_order_key(score), dim=1, descending=True,
+                      stable=True).indices[:, :topk]
+    return best.to(torch.int32), score.gather(1, best)
 
 
 def _order_key(x: torch.Tensor) -> torch.Tensor:
-    """Order-preserving bits of float32 `x` as int64 (-0 before +0):
-    the key of the kernel's sort."""
+    """Order-preserving bits of float32 `x` as int64: IEEE 754's total
+    order (-NaN < -inf < ... < -0 < +0 < ... < +inf < +NaN), the key of
+    the kernel's sort and of its NaN-aware ranking."""
     bits = x.contiguous().view(torch.int32).long() & 0xFFFFFFFF
     return torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF,
                        bits | 0x80000000)

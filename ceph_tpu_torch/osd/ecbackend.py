@@ -33,10 +33,12 @@ Clay single-loss plan, only the sub-chunk ranges of the repair planes
 (`readv_ranges_host`: the source verifies each full row against its
 hinfo and CRCs the shipped bytes on the backend's device).
 
-Left for later slices: the native host-encode mode (the twin's SSE
-codec on the CPU backend), remote-store staging (`readv_submit` and
-`readv_ranges_submit` frames of the wire tier; a store that offers
-them is refused) and TinStore.
+The stores (`MemStore`, `osd/tinstore.py`'s TinStore) and the native
+host library (`native/`) are ported. Left for later slices: the
+backend's native host-encode and host-CRC modes over that library (the
+twin's SSE codec and CRCs for CPU backends; ROADMAP queue 1 item 3) and
+remote-store staging (`readv_submit` and `readv_ranges_submit` frames of
+the wire tier; a store that offers them is refused; queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -2007,11 +2009,11 @@ class RecoveryRunner:
                  host_crc: bool = False):
         self.plans = [p for p in plans if p is not None]
         if host_crc and any(p.be.device.type != "cpu" for p in self.plans):
-            # the twin's mode hands CRCs to its native SSE4.2 library,
-            # which is not ported: on the card it would only move the
-            # checksums of device data onto the CPU
-            raise ValueError("host_crc=True needs CPU backends until the "
-                             "native CRC library is ported")
+            # the twin's mode hands CRCs to its native SSE4.2 library;
+            # a card backend keeps its CRCs on the card, where the mode
+            # would only move the checksums of device data to the CPU
+            raise ValueError("host_crc=True needs CPU backends: card "
+                             "backends keep their CRCs on the card")
         self.perf = perf if perf is not None else (
             self.plans[0].be.perf if self.plans else ec_perf_counters())
         self.batch = max(1, int(batch))
@@ -2339,7 +2341,8 @@ class RecoveryRunner:
                         or getattr(st, "readv_submit", None) is not None:
                     raise NotImplementedError(
                         "remote-store staging (readv frames) is not "
-                        "ported: ROADMAP queue 1 item 8, the wire tier")
+                        "ported: ROADMAP queue 1 item 5, the wire tier's "
+                        "daemons")
                 if ranges is not None:
                     rows, crcs, bad = readv_ranges_host(
                         st, cid, names, sl, ranges,

@@ -13,6 +13,7 @@ without a compiler.
 
 from __future__ import annotations
 
+import fcntl
 import hashlib
 import os
 import shutil
@@ -65,19 +66,31 @@ def build(src: Path, build_dir: Path = BUILD_DIR, compiler=find,
     `compiler()` names the compiler; it is asked only when a build is
     due. The library is written under a temporary name and moved into
     place, so processes that build at once never see half a file.
-    Raises on a failed build and leaves no library behind."""
+    Raises on a failed build and leaves no library behind.
+    A build holds an exclusive lock on `out`'s `.lock` file (removed
+    when it ends), so that processes that need one library at once (the
+    ranks of a mesh) run one compiler between them: the others wait and
+    find the library. The lock goes with its holder's process."""
     src = Path(src)
     out = library_path(src, build_dir, flags)
     if out.exists() and not force:
         return out
-    cc = compiler()
     build_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cc, *flags, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"{label} failed on {src.name} "
-                           f"(rc={proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
+    lock_path = out.with_suffix(".lock")
+    with open(lock_path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if out.exists() and not force:
+                return out
+            cc = compiler()
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([cc, *flags, "-o", str(tmp), str(src)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"{label} failed on {src.name} "
+                                   f"(rc={proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, out)
+        finally:
+            lock_path.unlink(missing_ok=True)
     return out

@@ -134,7 +134,26 @@ Phases, each of which fails loudly (exit code 1, no result line):
      recovery), every byte read again and a clean deep scrub of every
      PG. Every read is held byte for byte against a host model; it
      fails unless gf_apply launched the 4 KiB overwrites' delta shape
-     (1, 3, 4096) and a decode, and the CRC32C kernel launched.
+     (1, 3, 4096) and a decode, and the CRC32C kernel launched;
+ 13. the (dp, shard) mesh (ceph_tpu_torch/parallel/): one spawned rank
+     a card over NCCL (parallel.distributed.init_process), at mesh (1,
+     cards) (default_mesh) and, on an even number of cards above one,
+     host_mesh(shard=cards // 2), (2, 2) on four; on one card the mesh
+     is (1, 1) and its all-gathers move no bytes. On each: the sharded
+     RS k=8 m=3 encode of 32 x 4 MiB objects a dp row (global_batch
+     in) and its decode of shards 0 and 9, LRC k=8 m=4 l=4's local
+     repair of data_positions[0] and Clay k=8 m=4 d=11's repair of
+     shard 0 from its 11 helpers' repair planes; every rank's block
+     gathered to rank 0 (replicas must agree) and held bit for bit
+     against the single-card make_encoder result, the RS parity against
+     the numpy oracle on a sample; the byte counters against the
+     layout (encode moves nothing, a gather only the wanted slots,
+     Clay's helpers a quarter of their rows); each rank's gf_apply
+     launches (fails at 0); for each step the bytes a rank received
+     and sent, the step's ms (CUDA events), gf_apply's and NCCL's
+     device ms in a utils/tracing trace, and the all-gather alone at
+     the step's shape by CUDA events, with its GB/s beside its bound at
+     450 GB/s each way on NVLink. Any rank's failure fails the phase.
 Phases 3, 5, 7, 8, 9, 11 and 12 print the CRC32C kernel's launches and
 fail if there are none; phase 9 also needs XXH32, XXH64 and gf_apply
 launches, phase 10 a scorer launch a round.
@@ -157,7 +176,9 @@ fails unless its cases reach the kernel's three ways to its
 coefficient words (global memory, shared memory staged once, chunk by
 chunk). Phase 4 holds it against its plain version and times it at
 every row of PERF.md's kernel table (RS k=8 m=3 encode and decode, the
-ragged RMW delta, LRC's global layer and local repair, Clay's encode,
+one-loss rebuild at 1 and 32 objects, the ragged RMW delta, phase 12's
+4 KiB and 64 KiB deltas of one data shard, LRC's global layer and local
+repair, Clay's encode,
 repair and two-loss decode and SHEC's encode at the shapes of phase
 8): ms per call, device ms per launch from a trace that must show
 every launch, host microseconds per call, beside its plain version and
@@ -196,6 +217,11 @@ that too, side by side, and times it on the same inputs.
 
 builds gf_apply.cu and csum.cu and runs phase 12 alone, with its gates,
 then prints the card and one JSON object of its results.
+
+    python3 chip_smoke.py --mesh
+
+does the same for phase 13 (gf_apply.cu only): on one card a (1, 1)
+mesh; on a host with four cards, NCCL across them at (1, 4) and (2, 2).
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
 
@@ -265,6 +291,7 @@ RGW_OBJECTS = 64
 RGW_OBJECT = 1 << 20
 RGW_PARTS = 8
 RGW_PART = 8 << 20
+MESH_OBJECTS = 32            # phase 13: objects a dp row
 
 LRC_PROFILE = "plugin=lrc k=8 m=4 l=4"
 CLAY_PROFILE = "plugin=clay k=8 m=4 d=11"
@@ -288,6 +315,8 @@ FEW_LONG_ROWS = (1, 8, 16)   # phase 4's few-long-row CRC rows
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 at 3.35 TB/s,
 # int8 tensor cores at 1,979 Tops/s, float32 outside them at 67 T/s.
 HBM_BYTES_PER_S = 3.35e12
+# NVLink 4 between the H100s of one host: 900 GB/s, 450 GB/s each way
+NVLINK_BYTES_PER_S = 450e9
 INT8_OPS_PER_S = 1.979e15
 FP32_OPS_PER_S = 67e12
 # int32 operations: 64 int32 lanes a SM, half the float32 lanes behind
@@ -1019,8 +1048,10 @@ def main_path(torch, dev) -> dict:
 
 def gf_table(torch, dev, plain: bool = True) -> dict:
     """gf_apply at every row of PERF.md's kernel table: RS k=8 m=3
-    encode and two-loss decode over 32 objects of 4 MiB, the ragged RMW
-    delta of phase 5 (and the same launch with an all-zero matrix), and
+    encode and two-loss decode over 32 objects of 4 MiB, the one-loss
+    rebuild over 1 and 32, the ragged RMW delta of phase 5 (and the same
+    launch with an all-zero matrix), phase 12's one-shard deltas of 4
+    KiB and 64 KiB, and
     configs #3 and #4 and SHEC at the backend's shapes. For each: ms per
     call (CUDA events around 20 back-to-back calls), the kernel's own
     device time per launch (a trace), the host's microseconds per call;
@@ -1042,40 +1073,49 @@ def gf_table(torch, dev, plain: bool = True) -> dict:
     survivors = [s for s in range(K + M) if s not in LOST][:K]
     mats = {"encode": rs,
             "decode": decode_matrix(rs, list(LOST), K, survivors),
+            "rebuild": decode_matrix(rs, [0], K, list(range(1, K + 1))),
             "ragged": rs[:, [0, 2]],
+            "delta": rs[:, [0]],
             **lrc_matrices(factory(LRC_PROFILE, **entry_device(dev))),
             **clay_matrices(factory(CLAY_PROFILE, **entry_device(dev))),
             "shec encode": factory(SHEC_PROFILE, **entry_device(dev)).matrix}
-    # (row, matrix, length); configs #3 and #4 at the backend's shapes:
-    # LRC chunks of 512 KiB, Clay's 64 sub-chunks of 8 KiB
-    rows = (("encode", "encode", sl), ("decode", "decode", sl),
-            ("ragged", "ragged", 4093),
-            ("lrc_global", "lrc global layer", sl),
-            ("lrc_repair", "lrc local repair", sl),
-            ("clay_encode", "clay encode", sl // 64),
-            ("clay_repair", "clay repair", sl // 64),
-            ("clay_decode", "clay 2-loss decode", sl // 64),
-            ("shec_encode", "shec encode", OBJECT_SIZE // 4))
+    # (row, matrix, length, batch); configs #3 and #4 at the backend's
+    # shapes: LRC chunks of 512 KiB, Clay's 64 sub-chunks of 8 KiB; the
+    # RS one-loss rebuild of phases 7, 11 and 12 at one object and at a
+    # batch; phase 12's RMW deltas of one data shard, a 4 KiB RBD
+    # overwrite and a 64 KiB striper piece
+    rows = (("encode", "encode", sl, BATCH), ("decode", "decode", sl, BATCH),
+            ("rebuild_b1", "rebuild", sl, 1),
+            ("rebuild_b32", "rebuild", sl, BATCH),
+            ("ragged", "ragged", 4093, BATCH),
+            ("delta_4k", "delta", 4096, 1),
+            ("delta_64k", "delta", 65536, 1),
+            ("lrc_global", "lrc global layer", sl, BATCH),
+            ("lrc_repair", "lrc local repair", sl, BATCH),
+            ("clay_encode", "clay encode", sl // 64, BATCH),
+            ("clay_repair", "clay repair", sl // 64, BATCH),
+            ("clay_decode", "clay 2-loss decode", sl // 64, BATCH),
+            ("shec_encode", "shec encode", OBJECT_SIZE // 4, BATCH))
     out = {}
-    for label, name, s_len in rows:
+    for label, name, s_len, batch in rows:
         mat = mats[name]
         m, k = mat.shape
-        x = torch.randint(0, 256, (BATCH, k, s_len), dtype=torch.uint8,
+        x = torch.randint(0, 256, (batch, k, s_len), dtype=torch.uint8,
                           device=dev, generator=gen)
         # the kernel against its plain version at this shape
         if not torch.equal(G.apply_matrix_gf(mat, x),
                            G.apply_matrix_plain(mat, x)):
             fail(f"gf_apply disagrees with its plain version on {name} "
-                 f"at ({BATCH},{k},{s_len})")
+                 f"at ({batch},{k},{s_len})")
         ms = cuda_ms(lambda: G.apply_matrix_gf(mat, x), calls=20)
         dev_ms, dev_from = kernel_device_ms(
             lambda: G.apply_matrix_gf(mat, x), "gf_apply_kernel")
         us = host_us(lambda: G.apply_matrix_gf(mat, x))
         nnz = int((mat != 0).sum())
-        bound, by = gf_bound(BATCH, k, m, s_len, nnz)
+        bound, by = gf_bound(batch, k, m, s_len, nnz)
         row = {"ms": ms, "device_ms": dev_ms, "device_ms_from": dev_from,
                "host_us": us, "bound_ms": bound, "bound_by": by, "nnz": nnz,
-               "max_abs_err": 0, "shape": [BATCH, k, m, s_len]}
+               "max_abs_err": 0, "shape": [batch, k, m, s_len]}
         extra = ""
         if label == "ragged":
             # the same launch with a schedule of no entry: the kernel's
@@ -1096,13 +1136,13 @@ def gf_table(torch, dev, plain: bool = True) -> dict:
                                         1, 3)
                 extra += f", impl=mxu {row['mxu_ms']:.4f} ms"
         out[label] = row
-        log(f"  gf_apply {name} ({BATCH},{k},{s_len})->({BATCH},{m},{s_len})"
+        log(f"  gf_apply {name} ({batch},{k},{s_len})->({batch},{m},{s_len})"
             f": equal to plain; {ms:.5f} ms per call, {dev_ms:.5f} ms on "
             f"the device, {us:.1f} us of host time per call (bound "
             f"{bound:.6f} ms, {by}; {nnz} non-zero coefficients){extra}")
         del x
     torch.cuda.empty_cache()
-    return out, {label: mats[name] for label, name, _ in rows}
+    return out, {label: mats[name] for label, name, _, _ in rows}
 
 
 def csum_bound(B: int, L: int, out_bytes: int, ops_per_byte: float
@@ -3095,6 +3135,289 @@ def client_phase(torch, dev) -> tuple:
     return client, launches, shapes, crc
 
 
+# ------------------------------------------------------------ phase 13
+
+def slot_counts(wanted, n_slots: int, shard: int) -> list:
+    """How many of the `wanted` chunk slots each shard column holds."""
+    per = n_slots // shard
+    return [sum(1 for s in set(wanted) if c * per <= s < (c + 1) * per)
+            for c in range(shard)]
+
+
+def trace_kernel_ms(log_dir: Path, calls: int) -> dict:
+    """Device ms a call of gf_apply's kernel and of NCCL's kernels in the
+    chrome trace that utils/tracing.stop_trace exported into `log_dir`
+    (None where the trace holds no such kernel)."""
+    (path,) = Path(log_dir).glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    sums = {"gf_apply": 0.0, "nccl": 0.0}
+    seen = {"gf_apply": 0, "nccl": 0}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = e.get("name", "")
+        key = "gf_apply" if "gf_apply_kernel" in name else \
+            "nccl" if "nccl" in name.lower() else None
+        if key:
+            sums[key] += float(e.get("dur", 0.0))
+            seen[key] += 1
+    return {key: sums[key] / 1e3 / calls if seen[key] else None
+            for key in sums}
+
+
+def mesh_steps(torch, mesh, gen_seed: int) -> dict:
+    """Phase 13 on one mesh, on this rank: the sharded RS k=8 m=3 encode
+    of MESH_OBJECTS x 4 MiB objects a dp row and its decode of LOST, the
+    LRC local repair of config #3 and the Clay repair of config #4's
+    shard 0, through the mesh's entry points; every rank's block held
+    on rank 0 against the single-card result (and the RS bytes against
+    the numpy oracle on a sample), the byte counters against the layout;
+    then each step's wire bytes, collective and gf_apply times."""
+    import tempfile
+
+    import numpy as np
+
+    from ceph_tpu_torch.ec.linearize import derive_repair_matrix
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.gf.numpy_ref import decode_matrix, encode_ref
+    from ceph_tpu_torch.ops import gf_kernel as G
+    from ceph_tpu_torch.ops.rs_kernels import make_encoder
+    from ceph_tpu_torch.parallel import distributed as D
+    from ceph_tpu_torch.parallel import mesh as MM
+    from ceph_tpu_torch.utils import tracing
+
+    dev = mesh.device
+    dp, shard = mesh.devices.shape
+    row, col = mesh.position
+    B = MESH_OBJECTS * dp
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(gen_seed)
+    sl = OBJECT_SIZE // K
+    rs = factory(PROFILE).matrix
+    survivors = tuple(s for s in range(K + M) if s not in LOST)[:K]
+    # every rank makes the whole batch from one seed: the host's data
+    data = torch.randint(0, 256, (B, K, sl), dtype=torch.uint8, device=dev,
+                         generator=gen)
+
+    def stacked(profile):
+        coder = factory(profile)
+        n = coder.get_chunk_count()
+        objs = torch.randint(0, 256, (B, OBJECT_SIZE), dtype=torch.uint8,
+                             device=dev, generator=gen)
+        enc = coder.encode(range(n), objs)
+        full = torch.stack([enc[i] for i in range(n)], dim=1)
+        return coder, n, torch.nn.functional.pad(
+            full, (0, 0, 0, MM.padded_slots(n, mesh) - n))
+
+    lrc, n_lrc, lrc_chunks = stacked(LRC_PROFILE)
+    lost = lrc.data_positions[0]
+    helpers = sorted(lrc.minimum_to_decode(
+        [lost], [c for c in range(n_lrc) if c != lost]))
+    R = derive_repair_matrix(lrc, [lost], helpers)
+    clay, n_clay, clay_chunks = stacked(CLAY_PROFILE)
+    clay_helpers = tuple(range(1, clay.d + 1))
+    _D, planes = clay.repair_plan_matrix(0, clay_helpers)
+    nsub = clay.get_sub_chunk_count()
+    torch.cuda.synchronize()
+
+    steps = {"encode": MM.make_sharded_encoder(rs, mesh),
+             "decode": MM.make_sharded_decoder(rs, LOST, survivors, mesh),
+             "lrc_repair": MM.make_sharded_gather_apply(R, tuple(helpers),
+                                                        mesh),
+             "clay_repair": MM.make_sharded_clay_repair(clay, 0, clay_helpers,
+                                                        mesh)}
+    # the drive, its gf_apply launches counted from 0
+    gf_set(G)
+    gdata = D.global_batch(mesh, data)
+    chunks = steps["encode"](gdata)
+    outs = {"encode": chunks, "decode": steps["decode"](chunks),
+            "lrc_repair": steps["lrc_repair"](lrc_chunks),
+            "clay_repair": steps["clay_repair"](clay_chunks)}
+    torch.cuda.synchronize()
+    launches, shapes = gf_counts(G)
+    if launches == 0:
+        fail(f"phase 13: rank {mesh.rank} launched no gf_apply on mesh "
+             f"{mesh.devices.tolist()}")
+    wires = {name: dict(vars(step.wire)) for name, step in steps.items()}
+
+    # every rank's block on rank 0, against the single-card result
+    slots = MM.padded_slots(K + M, mesh)
+    got = {name: out.gather_global(dst=0) for name, out in outs.items()}
+    if mesh.rank == 0:
+        full = torch.zeros((B, slots, sl), dtype=torch.uint8, device=dev)
+        full[:, :K] = data
+        full[:, K:K + M] = make_encoder(rs)(data)
+        want = {"encode": full,
+                "decode": make_encoder(decode_matrix(
+                    rs, list(LOST), K, list(survivors)))(
+                        full[:, list(survivors)]),
+                "lrc_repair": make_encoder(R)(lrc_chunks[:, helpers]),
+                "clay_repair": clay_chunks[:, 0]}
+        for name in want:
+            if not torch.equal(got[name], want[name]):
+                fail(f"phase 13: the sharded {name} on mesh "
+                     f"{mesh.devices.tolist()} differs from the single-card "
+                     f"result")
+        if not torch.equal(want["decode"], full[:, list(LOST)]) or \
+                not torch.equal(want["lrc_repair"][:, 0],
+                                lrc_chunks[:, lost]):
+            fail("phase 13: a single-card rebuild differs from the lost "
+                 "chunk")
+        sample = data[:4, :, :4096].cpu().numpy()
+        if not np.array_equal(full[:4, K:K + M, :4096].cpu().numpy(),
+                              encode_ref(rs, sample)):
+            fail("phase 13: the sharded parity differs from the numpy "
+                 "oracle")
+    del got
+
+    # the wire: encode moves nothing, a gather only the wanted slots
+    b = B // dp
+    wanted = {"decode": (survivors, slots, sl),
+              "lrc_repair": (helpers, lrc_chunks.shape[1], sl),
+              "clay_repair": (clay_helpers, clay_chunks.shape[1],
+                              sl // nsub * len(planes))}
+    if wires["encode"] != {"calls": 0, "sent": 0, "received": 0,
+                           "padding": 0}:
+        fail(f"phase 13: the sharded encode moved bytes: {wires['encode']}")
+    for name, (want_slots, n_slots, width) in wanted.items():
+        counts = slot_counts(want_slots, n_slots, shard)
+        w = wires[name]
+        payload = (sum(counts) - counts[col]) * b * width
+        if w["calls"] != 1 or w["received"] - w["padding"] != payload or \
+                w["received"] != (shard - 1) * max(counts) * b * width:
+            fail(f"phase 13: {name} on rank {mesh.rank} moved {w}, not "
+                 f"{payload} bytes of wanted slots")
+    if len(planes) * clay.q != nsub:
+        fail("phase 13: Clay's helpers ship other than beta/nsub")
+
+    # times: each step under a trace (device ms of gf_apply and NCCL),
+    # the collective alone by CUDA events at the step's shape
+    times = {}
+    inputs = {"encode": gdata, "decode": chunks, "lrc_repair": lrc_chunks,
+              "clay_repair": clay_chunks}
+    calls = 5
+    for name, step in steps.items():
+        x = step.in_sharding.put(inputs[name])   # cut once, not a call
+        step(x)
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as log_dir:
+            with tracing.trace(log_dir) as ok:
+                if not ok:
+                    fail("phase 13: utils/tracing could not start a trace")
+                for _ in range(calls):
+                    step(x)
+                torch.cuda.synchronize()
+            traced = trace_kernel_ms(Path(log_dir), calls)
+        step_ms = cuda_ms(lambda: step(x), calls=calls)
+        w = wires[name]
+        row_t = {"received": w["received"], "sent": w["sent"],
+                 "padding": w["padding"], "step_ms": step_ms,
+                 "gf_apply_device_ms": traced["gf_apply"],
+                 "collective_trace_ms": traced["nccl"]}
+        if name != "encode":
+            want_slots, n_slots, width = wanted[name]
+            top = max(slot_counts(want_slots, n_slots, shard))
+            piece = torch.zeros((b, top, width), dtype=torch.uint8,
+                                device=dev)
+            probe = MM.Wire()
+            torch.distributed.barrier()
+            ms = cuda_ms(lambda: mesh.all_gather(piece, "shard", probe),
+                         calls=10)
+            bound = max(w["sent"], w["received"]) / NVLINK_BYTES_PER_S * 1e3
+            row_t.update({
+                "collective_ms": ms,
+                "gbps": w["received"] / ms / 1e6 if w["received"] else None,
+                "bound_ms": bound,
+                "share": bound / ms if w["received"] else None})
+        times[name] = row_t
+    return {"mesh": mesh.devices.tolist(), "position": [row, col],
+            "launches": launches, "by_shape": by_shape(shapes),
+            "wire": wires, "times": times}
+
+
+def mesh_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One rank of phase 13 (a spawned process a card): init_process over
+    NCCL, then `mesh_steps` at (1, world) (default_mesh) and, on more
+    than one card, host_mesh(shard=world // 2); its results into
+    `out_dir`/rank<rank>.json."""
+    import torch
+
+    from ceph_tpu_torch.ops import gf_kernel as G
+    from ceph_tpu_torch.parallel import distributed as D
+    from ceph_tpu_torch.parallel import mesh as MM
+    from ceph_tpu_torch.utils import nvcc
+
+    if not nvcc.library_path(G._SRC).exists():
+        fail(f"phase 13: rank {rank} finds no gf_apply library from "
+             f"phase 1")
+    dev = D.init_process(f"127.0.0.1:{port}", world, rank,
+                         local_devices=world)
+    meshes = [("default_mesh(shard=%d)" % world,
+               lambda: MM.default_mesh(shard=world))]
+    if world > 1 and world % 2 == 0:
+        meshes.append(("host_mesh(shard=%d)" % (world // 2),
+                       lambda: D.host_mesh(shard=world // 2)))
+    out = {"rank": rank, "device": str(dev),
+           "name": torch.cuda.get_device_name(dev), "meshes": {}}
+    for i, (label, make) in enumerate(meshes):
+        out["meshes"][label] = mesh_steps(torch, make(), SEED + 30 + i)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def mesh_phase(torch) -> dict:
+    """Phase 13: spawn one rank a card (NCCL), run `mesh_rank` on each and
+    print every rank's launches, bytes and times; any rank's failure
+    fails the phase. Returns the ranks' results."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    torch.cuda.empty_cache()            # the ranks share the cards with us
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.spawn(mesh_rank, args=(world, port, out_dir), nprocs=world,
+                 join=True)
+        ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+                 for r in range(world)]
+    secs = time.perf_counter() - t0
+    if world == 1:
+        log("  one card: the mesh is (1, 1); its collectives run over a "
+            "one-rank NCCL group and move no bytes")
+    total, shapes = 0, collections.Counter()
+    for label in ranks[0]["meshes"]:
+        log(f"  {label}: mesh {ranks[0]['meshes'][label]['mesh']}")
+        for r in ranks:
+            res = r["meshes"][label]
+            total += res["launches"]
+            shapes.update(res["by_shape"])
+            log(f"    rank {r['rank']} ({r['device']}, position "
+                f"{res['position']}): gf_apply launches {res['launches']}")
+            for name, t in res["times"].items():
+                extra = ""
+                if "collective_ms" in t:
+                    gbps = "no bytes" if t["gbps"] is None else \
+                        f"{t['gbps']:.2f} GB/s, {t['share']:.3f} of the " \
+                        f"{t['bound_ms']:.5f} ms NVLink bound"
+                    extra = (f"; all-gather alone {t['collective_ms']:.5f} "
+                             f"ms ({gbps})")
+                log(f"      {name}: received {t['received']} B (padding "
+                    f"{t['padding']}), sent {t['sent']} B; step "
+                    f"{t['step_ms']:.5f} ms; device ms in the trace: "
+                    f"gf_apply {show(t['gf_apply_device_ms'])}, NCCL "
+                    f"{show(t['collective_trace_ms'])}{extra}")
+    log(f"  phase 13 took {secs:.1f} s on {world} card(s); every rank's "
+        f"block equal to the single-card result")
+    return {"world": world, "seconds": secs, "launches": total,
+            "by_shape": dict(shapes), "ranks": ranks}
+
+
 def build_all() -> Path:
     """Phase 1: build every kernel source, one nvcc each, and the native
     host library (g++, always anew: a library copied in from another
@@ -3181,10 +3504,19 @@ def main() -> None:
         log(card_line())
         log(json.dumps({"client": client}))
         return
+    if sys.argv[1:] == ["--mesh"]:
+        t0 = time.perf_counter()
+        G.build()
+        log(f"phase 1: built gf_apply.cu in {time.perf_counter() - t0:.1f} s")
+        log("phase 13: the (dp, shard) mesh on the cards")
+        mesh = mesh_phase(torch)
+        log(card_line())
+        log(json.dumps({"mesh": mesh}))
+        return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: none, --gf-times, "
-             f"--crc-times, --score-times [PARENT_PLACEMENT_CU] or "
-             f"--client")
+             f"--crc-times, --score-times [PARENT_PLACEMENT_CU], "
+             f"--client or --mesh")
     native_lib = build_all()
 
     log("phase 2: kernels against their plain versions")
@@ -3279,23 +3611,30 @@ def main() -> None:
     log("phase 12: the client tier over the card's EC pool")
     client, launches12, shapes12, crc12 = client_phase(torch, dev)
     log("client " + json.dumps(client))
+
+    log("phase 13: the (dp, shard) mesh on the cards")
+    mesh = mesh_phase(torch)
+    launches13 = mesh["launches"]
+    log("mesh " + json.dumps({key: mesh[key] for key in
+                              ("world", "seconds", "launches", "by_shape")}))
     kernels = [{
         "name": "gf_apply",
         "route": "cuda",
         "source": "ceph_tpu_torch/ops/csrc/gf_apply.cu",
         "replaces": "ceph_tpu/ops/pallas_gf.py:103",
         "launches": launches + launches5 + launches7 + launches8
-        + launches9 + launches11 + launches12,
+        + launches9 + launches11 + launches12 + launches13,
         "launches_by_phase": {"3": launches, "5": launches5,
                               "7": launches7, "8": launches8,
                               "9": launches9, "11": launches11,
-                              "12": launches12},
+                              "12": launches12, "13": launches13},
         "launches_by_shape": {"3": by_shape(shapes3),
                               "5": backend["gf_apply_by_shape"],
                               "7": by_shape(shapes7),
                               "8": by_shape(shapes8),
                               "11": by_shape(shapes11),
-                              "12": by_shape(shapes12)},
+                              "12": by_shape(shapes12),
+                              "13": mesh["by_shape"]},
         "max_abs_err": gf_check["max_abs_err"],
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -3303,7 +3642,9 @@ def main() -> None:
         "shape": enc["shape"],
         "decode": times["decode"],
         "ragged": times["ragged"],
-        **{key: times[key] for key in ("lrc_global", "lrc_repair",
+        **{key: times[key] for key in ("rebuild_b1", "rebuild_b32",
+                                       "delta_4k", "delta_64k",
+                                       "lrc_global", "lrc_repair",
                                        "clay_encode", "clay_repair",
                                        "clay_decode", "shec_encode")},
     }]

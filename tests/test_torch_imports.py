@@ -45,7 +45,8 @@ def test_port_has_the_slice_modules():
                  "kv.interface", "kv.tindb", "osd.tinstore", "native",
                  "utils.throttle", "client", "client.objecter",
                  "client.rados", "client.rbd", "fs", "fs.client", "rgw",
-                 "rgw.gateway", "rgw.auth"):
+                 "rgw.gateway", "rgw.auth", "parallel", "parallel.mesh",
+                 "parallel.distributed"):
         assert f"ceph_tpu_torch.{name}" in mods, name
 
 

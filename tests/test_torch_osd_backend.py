@@ -575,7 +575,7 @@ def test_range_staging_refuses_remote_stores():
     tb.cluster.stores.pop(0)
     st = tb.cluster.osd(tb.acting[1])
     st.readv_ranges_submit = lambda *a: None
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         tb.recover_shards([0], replacement_osds={0: 100})
 
 

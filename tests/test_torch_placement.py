@@ -141,8 +141,8 @@ def _order_key_np(x: np.ndarray) -> np.ndarray:
 def _ranks_before(v, u, w, t, nan_aware):
     if t < 0:
         return True
-    if nan_aware and (np.isnan(v) or np.isnan(w)):
-        return bool(np.isnan(v) and (not np.isnan(w) or u < t))
+    if nan_aware:   # the total order: a NaN ranks by its sign and bits
+        v, w = (int(_order_key_np(np.float32(x))) for x in (v, w))
     return bool(v > w or (v == w and u < t))
 
 
@@ -301,9 +301,8 @@ NONFINITE_CASES = ("inf target", "-inf target", "nan target", "inf source",
 
 @pytest.mark.parametrize("case", NONFINITE_CASES)
 def test_walk_model_nonfinite_matches_plain(case):
-    # the twin's lax.top_k ranks a NaN with its sign bit set below -inf,
-    # torch.sort every NaN above every number: the plain version (the
-    # function the card kernel is held to) is the yardstick here
+    # the kernel's model, the plain version and the twin all rank in the
+    # total order: a NaN with its sign bit set below -inf
     members, src, dsts, dev, dom = _walk_inputs("random", seed=11)
     what, where = case.split()
     val = {"inf": np.inf, "-inf": -np.inf, "nan": np.nan}[what]
@@ -322,6 +321,34 @@ def test_walk_model_nonfinite_matches_plain(case):
         assert np.array_equal(mv, T.score_visits_plain(*tin, topk).numpy())
         exhaustive = ~np.isfinite(dev[src]) | (where == "target")
         assert (mv[exhaustive] == len(dsts)).all()
+        jb, js = _twin_score(members, src, dsts, dev, dom, topk)
+        assert np.array_equal(mb, jb), topk
+        assert _same_scores(ms, js), topk
+
+
+def test_sign_bit_nan_ranks_below_neg_inf_as_in_the_twin():
+    # row 36's source is target 7, so its gain at target 3 is
+    # -inf - (-inf) - 1: a NaN with the sign bit set on x86, which the
+    # twin's lax.top_k ranks below every -inf
+    rng = np.random.default_rng(3)
+    n_osds, N = 64, 64
+    dom = (np.arange(n_osds) // 4).astype(np.int32)
+    dev = rng.normal(0, 5, n_osds).astype(np.float32)
+    dsts = rng.choice(n_osds, 16, replace=False).astype(np.int32)
+    members = rng.integers(0, n_osds, (N, 6)).astype(np.int32)
+    src = members[:, 0].copy()
+    dev[dsts[[3, 7]]] = -np.inf
+    src[36] = members[36, 0] = dsts[7]
+    members[36, 1:] = NONE
+    tin = [torch.from_numpy(a) for a in (members, src, dsts, dev, dom)]
+    pb, ps = T.score_candidates_plain(*tin, 8)
+    jb, js = _twin_score(members, src, dsts, dev, dom, 8)
+    assert np.array_equal(pb.numpy(), jb)
+    assert _same_scores(ps.numpy(), js)
+    assert pb[36].tolist() == [0, 1, 2, 4, 5, 6, 7, 8]
+    assert np.isneginf(js[36]).all()
+    mb, ms, _ = _walk_model(members, src, dsts, dev, dom, 8)
+    assert np.array_equal(mb, jb) and _same_scores(ms, js)
 
 
 def test_score_visits_for_the_scan_instance(monkeypatch):

@@ -125,6 +125,37 @@ def test_gf_kernel_build_failure_raises(tmp_path, monkeypatch):
     assert not list(tmp_path.glob("*.so"))
 
 
+def test_builds_of_one_library_at_once_run_one_compiler(tmp_path):
+    # a mesh's ranks load gf_apply together: the one holding the lock
+    # builds, the others wait and find the library
+    import threading
+    import time
+
+    from ceph_tpu_torch.utils import nvcc
+    cc = tmp_path / "cc.sh"
+    cc.write_text('#!/bin/sh\ncp "$3" "$2"\n')      # cc -o OUT SRC
+    cc.chmod(0o755)
+    asked = []
+
+    def compiler():
+        asked.append(1)
+        time.sleep(0.5)
+        return str(cc)
+
+    out = tmp_path / "build"
+    paths = []
+    threads = [threading.Thread(target=lambda: paths.append(nvcc.build(
+        G._SRC, out, compiler, flags=()))) for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+        assert not t.is_alive()
+    assert len(asked) == 1 and len(set(paths)) == 1 and len(paths) == 3
+    assert paths[0].read_bytes() == G._SRC.read_bytes()
+    assert [p.name for p in out.iterdir()] == [paths[0].name]
+
+
 def test_mxu_sums_stay_exact_at_wide_k():
     # 8k bit products per output bit: float32 holds them exactly
     mat = np.full((2, 250), 0xFF, dtype=np.uint8)

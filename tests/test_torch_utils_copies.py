@@ -123,3 +123,25 @@ def test_span_times_into_counters_and_shows_in_the_profiler():
     assert perf.dump()["lat"]["avgcount"] == 1
     names = {e.key for e in prof.key_averages()}
     assert "ecbackend.write.encode" in names
+
+
+def test_trace_captures_a_span_into_a_chrome_trace(tmp_path):
+    # the twin's start_trace / stop_trace / trace over torch.profiler:
+    # True on a capture, False with none running or one already running
+    import json
+    assert TT.stop_trace() is False
+    assert TT.start_trace(str(tmp_path / "a")) is True
+    assert TT.start_trace(str(tmp_path / "b")) is False
+    with TT.span("mesh.gather_apply"):
+        torch.ones(4).sum()
+    assert TT.stop_trace() is True
+    assert TT.stop_trace() is False
+    with TT.trace(str(tmp_path / "c")) as ok:
+        assert ok is True
+        with TT.span("mesh.encode"):
+            torch.ones(4).sum()
+    for sub, name in (("a", "mesh.gather_apply"), ("c", "mesh.encode")):
+        (path,) = (tmp_path / sub).glob("*.pt.trace.json")
+        events = json.loads(path.read_text())["traceEvents"]
+        assert name in {e.get("name") for e in events}
+    assert not (tmp_path / "b").exists()
