@@ -1,0 +1,1684 @@
+"""Messenger — typed, CRC-protected, lossless-peer RPC.
+
+Rebuild of the reference's wire layer (ref: src/msg/Messenger.h
+Messenger/Connection/Dispatcher; src/msg/async/AsyncMessenger.cc —
+listen + per-connection state machines; src/msg/async/ProtocolV2.cc —
+banner exchange, crc-protected frame segments, and RESET/reconnect
+semantics; src/messages/*.h — typed Message subclasses). The control
+plane the sim runs in-process gets a real cross-process transport
+here: the native EC shim already crosses processes for DATA (its unix
+socket), this module is the typed CONTROL path (the role MOSDPing /
+MOSDPGLog / mon messages play).
+
+Scope and mapping (SURVEY §2.5/§5): bulk data movement between chips
+is ICI/DCN collectives, NOT this messenger — so this layer stays small
+and correctness-first. Implemented faithfully:
+
+* banner + identity handshake carrying the receiver's last-seen
+  sequence number per peer, so a reconnect resumes exactly where the
+  stream broke (the lossless_peer policy's replay);
+* frames `[u32 len][u64 seq][u16 type][payload][u32 crc32c]` — the
+  crc covers everything before it; a corrupt frame kills the
+  connection (ProtocolV2 crc mode behavior), and the sender's replay
+  queue redelivers on reconnect;
+* explicit ACKs retire the sender's unacked queue; receivers dedup by
+  (peer, seq) so redelivery is exactly-once upward;
+* a Dispatcher callback per message type (ms_fast_dispatch role);
+* SECURE mode (ref: src/msg/async/ProtocolV2.cc secure session
+  handshake + cephx): a Messenger built with a shared secret
+  negotiates mode at handshake (strict — a secure endpoint refuses a
+  crc peer, the anti-downgrade stance), mutually authenticates with
+  an HMAC challenge/response over both sides' nonces (the cephx
+  role, collapsed to one pre-shared key), derives a per-connection
+  AES-256-GCM session key via HKDF(secret, nonce_c||nonce_s), and
+  seals every frame `[u32 len][12B nonce][AES-GCM(seq|type|payload)]`
+  with the length as AAD. Nonces are direction-prefixed counters
+  (never reused under one key); a tampered frame fails the GCM tag
+  and kills the session exactly like a crc mismatch — replay heals.
+
+* COMPRESSION (ref: ProtocolV2 compression handshake +
+  src/compressor/): endpoints offer an algorithm at handshake;
+  active only when both offer the same one (a mismatch downgrades to
+  plain — compression is an optimization, unlike the security mode).
+  Per-message: payloads under a min size or that don't shrink ship
+  plain, flagged in the type field's high bit. Composes with both
+  modes — compression happens before the crc/seal covers the bytes,
+  a garbled compressed body kills the session like a crc mismatch,
+  and in secure mode the negotiated byte is bound into the auth
+  proof so an active tamperer cannot strip it.
+
+Threading model (ref: src/msg/async/Stack.h Worker/NetworkStack —
+the AsyncMessenger epoll worker pool): N REACTOR worker threads per
+messenger, each running a `selectors` (epoll on Linux) event loop.
+Connections are bound to a reactor ROUND-ROBIN at handshake
+completion (accept and dial alike) and stay there for life — all of a
+connection's socket I/O happens on its one reactor, so per-connection
+frame order needs no cross-thread coordination. The contract:
+
+* READS are nonblocking and batched: one wakeup drains the socket
+  into a per-connection buffer and parses every complete frame in it
+  (wire format identical to the blocking era — the frame bytes are
+  pinned bit-for-bit by tests/test_msgr_frames.py).
+* WRITES go through a per-connection WRITE QUEUE: send_frame seals/
+  CRCs the frame (in queue order, under the connection write lock —
+  nonce counters never reorder) and appends the iovec; whoever holds
+  the lock gather-flushes the whole queue in ONE sendmsg (many frames
+  per syscall). A socket that won't drain arms EVENT_WRITE and the
+  reactor resumes from the exact byte. Senders block on a byte-budget
+  backpressure cap (never reactor threads — they may hold frames
+  other connections are waiting on).
+* DISPATCH is fast by default (the ms_fast_dispatch role): handlers
+  run inline on the reactor, so they must never wait for another
+  frame of the SAME messenger to make progress. Handlers that block
+  on remote replies (the OSD's map fold runs a whole reconcile)
+  register with fast=False and run on the messenger's dispatch
+  thread instead — a reactor never blocks, so rpc replies always
+  drain even while a slow handler is mid-flight.
+* A standalone _Conn with no reactor (the frame-capture tests, the
+  handshake window before binding) falls back to blocking writes —
+  same bytes, same order.
+"""
+
+from __future__ import annotations
+
+import selectors
+import socket
+import struct
+import threading
+import time as _time_mod
+from collections import deque
+
+from ..csum.reference import ceph_crc32c, ceph_crc32c_iov
+from ..utils.encoding import Decoder, Encoder
+from ..utils.flight_recorder import current_sampled as _ftrace_active
+from ..utils.flight_recorder import trace_span as _ftrace_span
+from ..utils.perf_counters import PerfCountersBuilder
+
+
+def msgr_perf_counters():
+    """The messenger's counter schema (ref: AsyncMessenger's
+    msgr_send/recv counters in src/msg/async/Stack.h, dumped as the
+    `AsyncMessenger::Worker-*` loggers). One instance per Messenger;
+    a daemon nests it under "msgr" in its perf dump."""
+    return (PerfCountersBuilder("msgr")
+            .add_u64_counter("msg_tx", "logical messages sent")
+            .add_u64_counter("msg_rx", "messages delivered upward")
+            .add_u64_counter("frames_tx", "wire frames written")
+            .add_u64_counter("frames_rx", "wire frames read")
+            .add_u64_counter("bytes_tx", "wire bytes written")
+            .add_u64_counter("bytes_rx", "wire bytes read")
+            .add_u64_counter("segments_tx",
+                             "gather segments written (zero-copy iov)")
+            .add_u64_counter("acks_tx", "cumulative ACK frames sent")
+            .add_u64_counter("acks_rx", "cumulative ACK frames received")
+            .add_u64_counter("dup_rx", "replayed duplicates dropped")
+            .add_u64_counter("reconnects", "outbound dials completed")
+            .add_u64_counter("replayed", "unacked frames replayed")
+            .add_u64_counter("tx_compressed", "frames compressed on tx")
+            .add_u64_counter("rx_compressed", "frames inflated on rx")
+            .add_time_avg("crc_time", "frame crc32c compute (crc mode)")
+            .add_time_avg("seal_time",
+                          "AEAD seal incl. staging (secure mode)",
+                          hist=True)
+            .add_time_avg("open_time", "AEAD open (secure mode)")
+            # reactor event-loop occupancy (the AsyncMessenger worker
+            # counters: msgr_active_connections / worker event time)
+            .add_u64_counter("reactor_loops",
+                             "reactor loop iterations (select returns)")
+            .add_u64_counter("reactor_wakeups",
+                             "loop wakeups forced by the wake pipe "
+                             "(cross-thread register/arm-write)")
+            .add_time_avg("reactor_stall_time",
+                          "time per loop iteration spent OUT of "
+                          "select (dispatch + flush = loop lag for "
+                          "concurrent events)")
+            .add_u64("writeq_depth",
+                     "bytes queued across connection write queues")
+            .add_u64_counter("writeq_flushes",
+                             "gather-flush sendmsg calls")
+            .add_u64_counter("writeq_stalls",
+                             "sends that blocked on the write-queue "
+                             "byte budget")
+            .add_time_avg("writeq_stall_time",
+                          "backpressure wait per stalled send")
+            .create_perf_counters())
+
+BANNER = b"ceph_tpu msgr v2\n"
+ACK_TYPE = 0
+#: cumulative-ACK coalescing: ack every Nth delivered frame inline,
+#: and let the ack flusher cover the tail within ~20 ms. ACK frames
+#: are bit-identical to the per-frame era (same [seq 0][type 0][u64]
+#: format — the u64 is cumulative, which the sender's `<=` retire loop
+#: always honored), so mixed old/new peers interoperate. Acks only
+#: retire the sender's replay queue — replies never wait on them — so
+#: the delay costs nothing while cutting the rpc pattern's frame count
+#: by a third.
+ACK_BATCH = 8
+MODE_CRC = 0
+MODE_SECURE = 1
+_GCM_TAG = 16
+_NONCE = 12
+
+# on-wire compression (ref: src/msg/async/ProtocolV2.cc compression
+# handshake + src/compressor/): negotiated per connection, composes
+# with BOTH crc and secure mode (the payload is compressed before the
+# crc/seal covers it, so integrity always checks the wire bytes).
+# The frame's type field carries the per-message flag in its high bit
+# — small or incompressible payloads ship plain on a compressed
+# connection, exactly the reference's min-size behavior.
+COMP_NONE = 0
+COMP_ZLIB = 1
+_COMP_IDS = {None: COMP_NONE, "zlib": COMP_ZLIB}
+_COMP_FLAG = 0x8000
+_COMPRESS_MIN = 128          # don't bloat tiny frames
+_DECOMP_MAX = 1 << 26        # decompression-bomb ceiling (= frame cap)
+
+_MSG_TYPES: dict[int, type] = {}
+
+
+class _SecureBox:
+    """Per-connection AES-256-GCM sealer/opener. One direction-unique
+    4-byte prefix + 8-byte little-endian counter per nonce — counters
+    are advanced under the connection's write lock, so a nonce is
+    never reused under the session key."""
+
+    def __init__(self, key: bytes, tx_prefix: bytes, rx_prefix: bytes):
+        from ..auth.aead import AEAD
+        self._gcm = AEAD(key)
+        self._tx_prefix = tx_prefix
+        self._rx_prefix = rx_prefix
+        self._tx_ctr = 0
+
+    def seal(self, plain: bytes, aad: bytes) -> bytes:
+        nonce = self._tx_prefix + self._tx_ctr.to_bytes(8, "little")
+        self._tx_ctr += 1
+        return nonce + self._gcm.encrypt(nonce, plain, aad)
+
+    def open(self, body: bytes, aad: bytes) -> bytes:
+        from ..auth.aead import InvalidTag
+        if len(body) < _NONCE + _GCM_TAG:
+            raise ConnectionError("secure frame too short")
+        nonce, ct = body[:_NONCE], body[_NONCE:]
+        if nonce[:4] != self._rx_prefix:
+            raise ConnectionError("secure frame nonce from wrong "
+                                  "direction")
+        try:
+            return self._gcm.decrypt(nonce, ct, aad)
+        except InvalidTag:
+            # tampered/garbled ciphertext kills the session, exactly
+            # like a crc mismatch in crc mode; replay redelivers
+            raise ConnectionError("secure frame auth tag mismatch")
+
+
+def _derive_key(secret: bytes, nonce_c: bytes, nonce_s: bytes) -> bytes:
+    from ..auth.aead import hkdf_sha256
+    return hkdf_sha256(secret, salt=nonce_c + nonce_s,
+                       info=b"ceph_tpu msgr v2 secure session")
+
+
+#: fixed per-role nonce prefixes: deterministic direction separation
+#: (random nonce slices would collide with p=2^-32 per connection and
+#: alias both directions' counter spaces under ONE AES-GCM key)
+_PREFIX_SRV = b"srv\x00"
+_PREFIX_CLI = b"cli\x00"
+
+
+def _auth_proof(secret: bytes, role: bytes, nonce_c: bytes,
+                nonce_s: bytes, name: str,
+                seen_c: int, seen_s: int, offers: bytes) -> bytes:
+    """The proofs bind EVERY plaintext handshake field — name, both
+    last-seen sequence numbers, and both sides' RAW compression
+    offers — not just the nonces: an unauth'd peer_seen would let an
+    active tamperer inflate it and silently flush the victim's
+    unacked replay queue. The offers must be bound raw (client's,
+    server's — not the derived result): a tamperer flipping both
+    offer bytes to 'none' would leave the negotiated RESULT matching
+    on both sides, so only the offers themselves expose the strip."""
+    import hashlib
+    import hmac
+    return hmac.new(secret,
+                    role + nonce_c + nonce_s + name.encode()
+                    + seen_c.to_bytes(8, "little")
+                    + seen_s.to_bytes(8, "little")
+                    + offers,
+                    hashlib.sha256).digest()
+
+
+def register_message(cls):
+    """Class decorator: register a Message subclass by its type_id."""
+    tid = cls.type_id
+    if tid in _MSG_TYPES and _MSG_TYPES[tid] is not cls:
+        raise ValueError(f"message type {tid} already registered")
+    if tid == ACK_TYPE:
+        raise ValueError("type 0 is reserved for ACK")
+    if tid >= _COMP_FLAG:
+        raise ValueError("type ids above 0x7FFF collide with the "
+                         "compression flag bit")
+    _MSG_TYPES[tid] = cls
+    return cls
+
+
+class Message:
+    """Typed payload (the Message subclass contract): subclasses set
+    type_id and implement encode_payload/decode_payload."""
+
+    type_id: int = -1
+
+    def encode_payload(self, e: Encoder) -> None:
+        raise NotImplementedError
+
+    @classmethod
+    def decode_payload(cls, d: Decoder) -> "Message":
+        raise NotImplementedError
+
+
+_crc32c_impl = None
+
+
+def _crc_impl():
+    # frame CRCs run per message on the hot wire path: use the native
+    # C codec's crc32c (bit-identical to ceph_crc32c — pinned by
+    # tests/test_native.py) instead of the per-byte python reference.
+    # Resolved LAZILY and only when the .so is ALREADY BUILT: import
+    # must never trigger a compile (parallel `make -B` races corrupt
+    # the .so for concurrent bench subprocesses).
+    global _crc32c_impl
+    if _crc32c_impl is None:
+        impl = ceph_crc32c
+        try:
+            from .. import native
+            if native.ready():
+                native.native_crc32c(0, b"probe")
+                impl = native.native_crc32c
+        except Exception:          # noqa: BLE001 — optional native lib
+            pass
+        _crc32c_impl = impl
+    return _crc32c_impl
+
+
+def _crc(data: bytes) -> int:
+    return int(_crc_impl()(0xFFFFFFFF, data)) & 0xFFFFFFFF
+
+
+def _crc_iov(parts) -> int:
+    """Frame CRC as a seeded continuation over segments — identical to
+    _crc(join(parts)) with no join (the running-CRC form both the
+    python reference and the native codec are chainable in)."""
+    return ceph_crc32c_iov(0xFFFFFFFF, parts, update=_crc_impl())
+
+
+def _flatten(payload) -> bytes:
+    """Materialize a payload (bytes-like or segment list) into ONE
+    contiguous bytes. This is the single choke point where the framing
+    path may copy payload bytes — the zero-copy smoke test counts
+    calls to it (crc mode: zero; secure/compress: one staged buffer
+    per frame)."""
+    if isinstance(payload, (list, tuple)):
+        return b"".join(payload)
+    return bytes(payload)
+
+
+def _payload_len(payload) -> int:
+    if isinstance(payload, (list, tuple)):
+        return sum(len(p) for p in payload)
+    return len(payload)
+
+
+def _set_nodelay(sock: socket.socket) -> None:
+    if sock.family == socket.AF_INET:
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    # generous kernel buffers: a 512 KiB batched write frame should
+    # leave in ONE sendmsg, not ping-pong through EAGAIN/arm-write
+    # reactor cycles against the ~208 KiB default
+    for opt in (socket.SO_SNDBUF, socket.SO_RCVBUF):
+        try:
+            sock.setsockopt(socket.SOL_SOCKET, opt, 1 << 20)
+        except OSError:
+            pass
+
+
+def _sendmsg_all(sock: socket.socket, parts: list) -> None:
+    """Gather-write the iovec fully (sendmsg may send partially under
+    pressure; resume from the exact byte like sendall would)."""
+    views = [memoryview(p) for p in parts if len(p)]
+    total = sum(len(v) for v in views)
+    sent = sock.sendmsg(views)
+    while sent < total:
+        total -= sent
+        while sent:
+            if sent >= len(views[0]):
+                sent -= len(views[0])
+                views.pop(0)
+            else:
+                views[0] = views[0][sent:]
+                sent = 0
+        sent = sock.sendmsg(views)
+
+
+#: reactor threads must never block on another connection's write
+#: budget (they may hold frames that connection is waiting on): the
+#: loop marks itself and _enqueue skips the backpressure wait
+_TLS = threading.local()
+
+#: per-connection write-queue byte budget: senders beyond it block
+#: until the reactor drains below half (the ms write-queue throttle
+#: role). Generous — the op window bounds steady state well below it.
+_WQ_HIGH = 16 << 20
+#: max iovec parts per gather-flush sendmsg (IOV_MAX headroom)
+_WQ_IOV = 512
+
+
+class _Reactor(threading.Thread):
+    """One epoll worker (ref: src/msg/async/EventCenter): owns a
+    selector; every registered socket's events are handled on this
+    thread. Cross-thread mutations (register, arm-write, close) are
+    marshalled through call() + a wake pipe — the selector itself is
+    touched only from the loop."""
+
+    def __init__(self, name: str, perf=None):
+        super().__init__(daemon=True, name=name)
+        self.sel = selectors.DefaultSelector()
+        self._wake_r, self._wake_w = socket.socketpair()
+        self._wake_r.setblocking(False)
+        self._wake_w.setblocking(False)
+        self.sel.register(self._wake_r, selectors.EVENT_READ, None)
+        self._calls: deque = deque()
+        self._clock = threading.Lock()
+        self._stopping = False
+        self.perf = perf
+        self._owned: set = set()     # sockets to close at stop
+        self.start()
+
+    # -- cross-thread surface ------------------------------------------------
+
+    def call(self, fn) -> None:
+        """Run fn() on the reactor thread (next loop iteration)."""
+        with self._clock:
+            self._calls.append(fn)
+        self.wakeup()
+
+    def wakeup(self) -> None:
+        try:
+            self._wake_w.send(b"\0")
+        except (BlockingIOError, OSError):
+            pass                      # pipe full = already waking
+
+    def stop(self) -> None:
+        self._stopping = True
+        self.wakeup()
+
+    # -- loop-thread surface -------------------------------------------------
+
+    def register(self, sock: socket.socket, events: int, cb) -> None:
+        """cb(mask) is invoked on this thread for every event."""
+        self._owned.add(sock)
+        try:
+            self.sel.register(sock, events, cb)
+        except (KeyError, ValueError, OSError):
+            pass
+
+    def unregister(self, sock: socket.socket) -> None:
+        self._owned.discard(sock)
+        try:
+            self.sel.unregister(sock)
+        except (KeyError, ValueError, OSError):
+            pass
+
+    def set_events(self, sock: socket.socket, events: int) -> None:
+        try:
+            key = self.sel.get_key(sock)
+            if key.events != events:
+                self.sel.modify(sock, events, key.data)
+        except (KeyError, ValueError, OSError):
+            pass                      # unregistered/closed meanwhile
+
+    def run(self) -> None:
+        _TLS.in_reactor = True
+        perf = self.perf
+        while not self._stopping:
+            try:
+                events = self.sel.select(timeout=0.5)
+            except OSError:
+                if self._stopping:
+                    break
+                continue
+            t0 = _time_mod.perf_counter()
+            woke = 0
+            for key, mask in events:
+                if key.data is None:          # the wake pipe
+                    woke = 1
+                    try:
+                        while self._wake_r.recv(4096):
+                            pass
+                    except (BlockingIOError, OSError):
+                        pass
+                    continue
+                try:
+                    key.data(mask)
+                except Exception:   # noqa: BLE001 — one connection's
+                    pass            # failure must not kill the loop
+            while True:
+                with self._clock:
+                    if not self._calls:
+                        break
+                    fn = self._calls.popleft()
+                try:
+                    fn()
+                except Exception:   # noqa: BLE001
+                    pass
+            if perf is not None:
+                perf.inc_many((("reactor_loops", 1),
+                               ("reactor_wakeups", woke)))
+                perf.tinc("reactor_stall_time",
+                          _time_mod.perf_counter() - t0)
+        for sock in list(self._owned):
+            try:
+                sock.close()
+            except OSError:
+                pass
+        try:
+            self.sel.unregister(self._wake_r)
+        except (KeyError, ValueError, OSError):
+            pass
+        try:
+            self.sel.close()
+            self._wake_r.close()
+            self._wake_w.close()
+        except OSError:
+            pass
+
+
+class _Conn:
+    """One live socket + replay state toward one peer."""
+
+    def __init__(self, sock: socket.socket, box: _SecureBox | None = None,
+                 peer_inst: bytes = b"", comp: int = COMP_NONE,
+                 stats: dict | None = None,
+                 stats_lock: threading.Lock | None = None,
+                 perf=None, flow: dict | None = None,
+                 flow_lock: threading.Lock | None = None):
+        self.sock = sock
+        self.wlock = threading.Lock()
+        self.alive = True
+        self.box = box
+        self.perf = perf
+        # per-PEER flow ledger (r22): shared with the Messenger so the
+        # numbers survive reconnects — the ledger is keyed by peer
+        # name, the conn just holds its entry. flow_lock is a leaf
+        # lock (never taken while acquiring another).
+        self.flow = flow
+        self.flow_lock = flow_lock
+        # receive-side cumulative-ack cursor: highest peer seq this
+        # side has ACKED on this conn (reader + ack flusher both
+        # advance it; acks are idempotent so the benign race costs at
+        # most one duplicate ack)
+        self.acked_out = 0
+        self.comp = comp            # negotiated compression algo id
+        self.stats = stats if stats is not None else {}
+        self.stats_lock = stats_lock or threading.Lock()
+        # which peer INCARNATION this conn authenticated: frames from
+        # a conn whose incarnation is no longer current must never
+        # reach the session state (see _on_frame)
+        self.peer_inst = peer_inst
+        # reactor binding (None = standalone blocking writes — the
+        # pre-handshake window and the frame-capture test harness)
+        self.reactor: _Reactor | None = None
+        self._rx = bytearray()      # unparsed inbound bytes
+        self._wq: deque = deque()   # outbound iovec parts, wire-ready
+        self._wq_bytes = 0
+        self._wcond = threading.Condition(self.wlock)
+        self._write_armed = False
+        self._closed = False
+
+    def send_frame(self, seq: int, type_id: int, payload) -> None:
+        """`payload` is bytes-like OR a segment list (Encoder.segments
+        output). Wire bytes are bit-identical either way; the list form
+        never copies the payload in crc mode (gather-write + running
+        CRC), and stages exactly one contiguous buffer in secure/
+        compressed mode (the seal/deflate input). With a reactor bound
+        the frame is QUEUED (sealed/CRCed in queue order) and flushed
+        opportunistically — many frames coalesce into one sendmsg."""
+        segs = list(payload) if isinstance(payload, (list, tuple)) \
+            else [payload]
+        plen = sum(len(s) for s in segs)
+        is_ack = type_id == ACK_TYPE
+        if self.comp == COMP_ZLIB and plen >= _COMPRESS_MIN:
+            import zlib
+            packed = zlib.compress(_flatten(segs), 1)
+            if len(packed) < plen:   # only when it helps
+                segs = [packed]
+                plen = len(packed)
+                type_id |= _COMP_FLAG
+                with self.stats_lock:
+                    self.stats["tx_compressed"] = \
+                        self.stats.get("tx_compressed", 0) + 1
+                if self.perf is not None:
+                    self.perf.inc("tx_compressed")
+        if self.box is None:
+            # [u32 len][u64 seq][u16 type] packs to the same 14 bytes
+            # the two-step concat produced; the crc is a seeded
+            # continuation over header + payload segments — no join
+            hdr = struct.pack("<IQH", 10 + plen, seq, type_id)
+            t0 = _time_mod.perf_counter() if self.perf is not None else 0.0
+            crc = struct.pack("<I", _crc_iov([hdr] + segs))
+            if self.perf is not None:
+                self.perf.tinc("crc_time",
+                               _time_mod.perf_counter() - t0)
+            with self.wlock:
+                if self.reactor is None:
+                    _sendmsg_all(self.sock, [hdr] + segs + [crc])
+                else:
+                    self._enqueue_locked([hdr] + segs + [crc])
+            wire = 14 + plen + 4
+            nseg = len(segs)
+        else:
+            # r15: when a sampled trace context is active on this
+            # thread (an op reply sealing inside the op's dynamic
+            # extent), the AEAD seal records as a crypto span — one
+            # contextvar read per frame otherwise
+            with self.wlock:
+                # seal under the lock: the nonce counter must advance
+                # in transmit order or a reordered pair would reuse
+                # one. AEAD needs contiguous input: stage ONE buffer.
+                hdr = struct.pack(
+                    "<I", _NONCE + 10 + plen + _GCM_TAG)
+                t0 = _time_mod.perf_counter() \
+                    if self.perf is not None else 0.0
+                if _ftrace_active() is not None:
+                    with _ftrace_span("msgr.seal", nbytes=plen):
+                        plain = _flatten(
+                            [struct.pack("<QH", seq, type_id)] + segs)
+                        sealed = self.box.seal(plain, hdr)
+                else:
+                    plain = _flatten(
+                        [struct.pack("<QH", seq, type_id)] + segs)
+                    sealed = self.box.seal(plain, hdr)
+                if self.perf is not None:
+                    self.perf.tinc("seal_time",
+                                   _time_mod.perf_counter() - t0)
+                if self.reactor is None:
+                    _sendmsg_all(self.sock, [hdr, sealed])
+                else:
+                    self._enqueue_locked([hdr, sealed])
+            wire = 4 + _NONCE + 10 + plen + _GCM_TAG
+            nseg = 1
+        if self.perf is not None:
+            self.perf.inc_many((("frames_tx", 1), ("bytes_tx", wire),
+                                ("segments_tx", nseg))
+                               + ((("acks_tx", 1),) if is_ack else ()))
+        if self.flow is not None:
+            with self.flow_lock:
+                self.flow["frames_tx"] += 1
+                self.flow["bytes_tx"] += wire
+
+    # -- write queue (reactor-bound conns) ------------------------------------
+
+    def _enqueue_locked(self, parts: list) -> None:
+        """Append wire-ready parts and flush opportunistically. Caller
+        holds wlock. Blocks on the byte budget — except on reactor
+        threads, which must never wait on another conn's drain."""
+        if not self.alive:
+            raise ConnectionError("connection closed")
+        if (self._wq_bytes > _WQ_HIGH
+                and not getattr(_TLS, "in_reactor", False)):
+            t0 = _time_mod.perf_counter()
+            while self.alive and self._wq_bytes > _WQ_HIGH // 2:
+                self._wcond.wait(0.2)
+            dt = _time_mod.perf_counter() - t0
+            if self.perf is not None:
+                self.perf.inc("writeq_stalls")
+                self.perf.tinc("writeq_stall_time", dt)
+            if self.flow is not None:
+                with self.flow_lock:
+                    self.flow["stalls"] += 1
+                    self.flow["stall_time_s"] += dt
+            if not self.alive:
+                raise ConnectionError("connection closed")
+        for p in parts:
+            if len(p):
+                self._wq.append(memoryview(p))
+                self._wq_bytes += len(p)
+        self._flush_locked()
+
+    def _flush_locked(self) -> None:
+        """Gather-write as much of the queue as the socket takes (many
+        frames per sendmsg). Caller holds wlock. A full socket arms
+        EVENT_WRITE; the reactor resumes from the exact byte."""
+        while self._wq:
+            iov = []
+            n = 0
+            for v in self._wq:
+                iov.append(v)
+                n += 1
+                if n >= _WQ_IOV:
+                    break
+            try:
+                sent = self.sock.sendmsg(iov)
+            except (BlockingIOError, InterruptedError):
+                self._arm_write_locked()
+                return
+            except OSError:
+                # socket died with frames queued: they are all still
+                # in the sender's unacked queue — replay redelivers
+                # after the reconnect. The reactor reaps the conn.
+                self.alive = False
+                self._wcond.notify_all()
+                if self.reactor is not None:
+                    self.reactor.wakeup()
+                return
+            if self.perf is not None:
+                self.perf.inc("writeq_flushes")
+            self._wq_bytes -= sent
+            while sent:
+                head = self._wq[0]
+                if sent >= len(head):
+                    sent -= len(head)
+                    self._wq.popleft()
+                else:
+                    self._wq[0] = head[sent:]
+                    sent = 0
+        if self._wq_bytes <= _WQ_HIGH // 2:
+            self._wcond.notify_all()
+        if self.perf is not None:
+            self.perf.set("writeq_depth", self._wq_bytes)
+        if self.flow is not None:
+            with self.flow_lock:
+                self.flow["writeq_bytes"] = self._wq_bytes
+                self.flow["writeq_frames"] = len(self._wq)
+
+    def _arm_write_locked(self) -> None:
+        if self._write_armed or self.reactor is None:
+            return
+        self._write_armed = True
+        r, sock = self.reactor, self.sock
+        r.call(lambda: r.set_events(
+            sock, selectors.EVENT_READ | selectors.EVENT_WRITE))
+
+    def _on_writable(self) -> None:
+        """Reactor: socket drained — flush more, disarm when empty."""
+        with self.wlock:
+            self._flush_locked()
+            if not self._wq and self._write_armed:
+                self._write_armed = False
+                self.reactor.set_events(self.sock,
+                                        selectors.EVENT_READ)
+
+    def close(self) -> None:
+        self.alive = False
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        with self.wlock:
+            self._wcond.notify_all()   # unblock backpressured senders
+        r = self.reactor
+        if r is None:
+            self._close_fd()
+        else:
+            # the fd itself closes ON the reactor: closing here would
+            # let the OS reuse the number while the selector still
+            # maps it — events would route to the wrong connection
+            r.call(self._reactor_close)
+
+    def _reactor_close(self) -> None:
+        if self.reactor is not None:
+            self.reactor.unregister(self.sock)
+        self._close_fd()
+
+    def _close_fd(self) -> None:
+        with self.wlock:
+            if self._closed:
+                return
+            self._closed = True
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+
+
+class Messenger:
+    """Bind, connect, send typed messages, dispatch callbacks.
+
+    Lossless-peer semantics: every logical message gets a sequence
+    number; unacked messages survive connection death and are replayed
+    after the automatic reconnect (send() never silently drops)."""
+
+    def __init__(self, name: str, host: str = "127.0.0.1",
+                 secret: bytes | None = None,
+                 compress: str | None = None,
+                 workers: int | None = None,
+                 uds: bool = False):
+        """`secret` switches the endpoint to SECURE mode: every
+        connection mutually authenticates against the shared secret
+        and encrypts frames with a per-connection AES-GCM key. A
+        secure endpoint refuses crc peers and vice versa (strict
+        negotiation — no downgrade path). `compress` ("zlib") offers
+        per-connection compression: active only when BOTH endpoints
+        offer the same algorithm (an optimization, so a mismatch
+        downgrades to plain rather than refusing); in secure mode the
+        negotiated byte is bound into the auth proof so it cannot be
+        tampered down. `workers` sets the reactor thread count (the
+        ms_async_op_threads role; default 1, or
+        $CEPH_TPU_MSGR_WORKERS) — connections bind round-robin.
+        `uds` listens on a Unix-domain socket instead of loopback TCP
+        (same frames, same handshake — only the byte carrier changes;
+        ~2.5x the bulk throughput of the loopback TCP stack on this
+        kernel). The address book carries ("unix", path) tuples, so
+        mixed TCP/UDS endpoints interoperate peer by peer."""
+        self.name = name
+        self.secret = secret
+        self.compress = compress
+        self._comp_id = _COMP_IDS[compress]
+        self.stats: dict[str, int] = {}
+        self._stats_lock = threading.Lock()
+        # per-messenger counters (a daemon nests this under "msgr" in
+        # its perf dump; ref: the AsyncMessenger worker loggers)
+        self.perf = msgr_perf_counters()
+        self.mode = MODE_SECURE if secret is not None else MODE_CRC
+        # instance cookie (ref: ProtocolV2 client/server cookies +
+        # RESET_SESSION): a rebooted process reuses its NAME but not
+        # its sequence space — peers detect the new cookie at
+        # handshake and reset the receive direction, else every frame
+        # from the new incarnation would be dropped as a replayed
+        # duplicate by the max-seq dedup
+        import os as _os
+        self.instance_nonce = _os.urandom(8)
+        self._peer_nonce: dict[str, bytes] = {}
+        self._handlers: dict[int, callable] = {}
+        self._lock = threading.Lock()
+        # one lock per PEER held across seq-assignment + transmit:
+        # frames must hit the socket in sequence order or the
+        # receiver's max-seq dedup would discard reordered messages,
+        # and concurrent connects would race adopting sockets
+        self._peer_locks: dict[str, threading.RLock] = {}
+        # per-peer-name state (the lossless session, not the socket):
+        self._out_seq: dict[str, int] = {}
+        self._unacked: dict[str, deque] = {}   # (seq, type, payload)
+        self._in_seq: dict[str, int] = {}      # last delivered seq
+        self._conns: dict[str, _Conn] = {}
+        self._addr_of: dict[str, tuple] = {}
+        self._blocked: set[str] = set()        # partition injection
+        # ms_inject_socket_failures analog: every Nth send kills the
+        # live socket first (0 = off); _inject_fired counts teardowns
+        self._inject_every = 0
+        self._inject_count = 0
+        self._inject_fired = 0
+        # ms_inject_delay analog: uniform [0, max_ms] sleep before
+        # every Nth transmit (0 = off) — injects timing skew and
+        # CROSS-peer reordering (within one peer the per-peer lock +
+        # seq assignment after the sleep keep frames in order); it
+        # stresses timeout boundaries, not the seq dedup
+        self._delay_every = 0
+        self._delay_max_ms = 0.0
+        self._delay_count = 0
+        self._delay_fired = 0
+        # r22 link-degrade injection: a PER-PEER one-way delay (base +
+        # uniform jitter, ms) applied on the sender's dispatch path
+        # before every transmit toward that peer — a directed slow
+        # LINK, where set_inject_delay is a slow PROCESS. Reactor
+        # threads never sleep, so fast-dispatch replies (pongs) pass
+        # undelayed: the delay lands on exactly one direction of one
+        # link, which is what gives the health check its sharp
+        # attribution.
+        self._link_delay: dict[str, tuple[float, float]] = {}
+        self._link_delay_fired = 0
+        # r22 per-peer flow ledger: bytes/frames both ways, write-queue
+        # stalls, live queue depth — same counters the perf logger
+        # aggregates, kept per peer so traffic and RTT share a key.
+        # Entries persist across reconnects (session scope, like
+        # _out_seq); _flow_lock is a leaf lock.
+        self._flow: dict[str, dict] = {}
+        self._flow_lock = threading.Lock()
+        # injection decisions come from a PER-MESSENGER RNG, never the
+        # global `random`: a thrash run that logs its seed must replay
+        # the same delay schedule, and the global stream is perturbed
+        # by every other random consumer in the process
+        import random as _random
+        self._inject_rng = _random.Random()
+        self._stopping = False
+        # the reactor pool (ref: AsyncMessenger's Worker threads):
+        # every connection's socket I/O runs on exactly one of these
+        if workers is None:
+            import os as _os
+            workers = int(_os.environ.get("CEPH_TPU_MSGR_WORKERS",
+                                          "1") or 1)
+        self._reactors = [_Reactor(f"msgr-{name}-r{i}", perf=self.perf)
+                          for i in range(max(1, int(workers)))]
+        self._rr = 0                 # round-robin binding cursor
+        self._uds_path = None
+        if uds:
+            import os as _os
+            import tempfile as _tempfile
+            # short path (AF_UNIX caps at ~107 bytes), unique per
+            # incarnation — a revived daemon must not collide with
+            # its corpse's socket file
+            self._uds_path = _os.path.join(
+                _tempfile.gettempdir(),
+                f"cmsgr-{_os.getpid():x}-"
+                f"{self.instance_nonce[:4].hex()}.sock")
+            self._listener = socket.socket(socket.AF_UNIX,
+                                           socket.SOCK_STREAM)
+            self._listener.bind(self._uds_path)
+            self._listener.listen(128)
+            self.addr = ("unix", self._uds_path)
+        else:
+            self._listener = socket.create_server((host, 0))
+            self.addr = self._listener.getsockname()
+        self._listener.setblocking(False)
+        r0 = self._reactors[0]
+        r0.call(lambda: r0.register(self._listener,
+                                    selectors.EVENT_READ,
+                                    self._accept_ready))
+        # slow-dispatch queue (the DispatchQueue role): handlers
+        # registered fast=False run here so a blocking fold can never
+        # stall a reactor. Started lazily with the first slow handler.
+        self._dispatch_q = None
+        # delayed-ack flusher: covers frames the inline every-Nth ack
+        # didn't reach (see ACK_BATCH); event-driven so an idle
+        # messenger sleeps
+        self._ack_event = threading.Event()
+        self._ack_thread = threading.Thread(target=self._ack_loop,
+                                            daemon=True)
+        self._ack_thread.start()
+
+    # -- dispatch ------------------------------------------------------------
+
+    def register_handler(self, type_id: int, fn,
+                         fast: bool = True) -> None:
+        """fn(peer_name: str, msg: Message). `fast` handlers run
+        INLINE on the connection's reactor (ms_fast_dispatch): they
+        must never wait for another frame of this messenger to make
+        progress. Handlers that can block on remote replies (a map
+        fold that runs a reconcile) pass fast=False and run on the
+        messenger's dispatch thread — per-peer order among slow
+        frames is preserved (one FIFO), order RELATIVE to fast frames
+        of the same connection is not (exactly the reference's
+        fast-vs-queued dispatch contract)."""
+        self._handlers[type_id] = (fn, fast)
+        if not fast and self._dispatch_q is None:
+            import queue
+            self._dispatch_q = queue.SimpleQueue()
+            threading.Thread(target=self._dispatch_loop,
+                             daemon=True).start()
+
+    def _dispatch_loop(self) -> None:
+        import queue
+        while not self._stopping:
+            try:
+                fn, peer, cls, payload = self._dispatch_q.get(
+                    timeout=0.5)
+            except queue.Empty:
+                continue
+            try:
+                fn(peer, cls.decode_payload(Decoder(payload)))
+            except Exception as e:  # noqa: BLE001 — poison message:
+                # already acked; contain the blast radius (same rule
+                # as fast dispatch)
+                from ..utils.log import g_log
+                g_log.dout("msgr", 0,
+                           f"dispatch error from {peer} "
+                           f"type={cls.type_id:#x}: {e!r}")
+
+    # -- connection management ----------------------------------------------
+
+    def _accept_ready(self, mask: int) -> None:
+        """Reactor 0: the listener is readable — accept everything
+        pending; each new socket handshakes on its own (short-lived)
+        thread, then binds to a reactor round-robin."""
+        while not self._stopping:
+            try:
+                sock, _ = self._listener.accept()
+            except (BlockingIOError, InterruptedError):
+                return
+            except OSError:
+                # transient failure (e.g. EMFILE): the listener stays
+                # registered — the next readable event retries rather
+                # than silently going deaf
+                return
+            threading.Thread(target=self._handshake_in, args=(sock,),
+                             daemon=True).start()
+
+    def _check_incarnation(self, peer: str, nonce: bytes) -> None:
+        """A changed instance cookie = the peer rebooted: its sequence
+        space restarted, so our receive cursor must too (the
+        RESET_SESSION role). Our own send state stays — the fresh peer
+        reports seen=0 and triggers a full replay of unacked."""
+        with self._lock:
+            old = self._peer_nonce.get(peer)
+            if old is not None and old != nonce:
+                self._in_seq.pop(peer, None)
+            self._peer_nonce[peer] = nonce
+
+    def _handshake_in(self, sock: socket.socket) -> None:
+        box = None
+        try:
+            # disable Nagle: frames go out as several small sends
+            # (header, then payload); coalescing them behind delayed
+            # ACKs costs tens of ms PER FRAME on the rpc path (the
+            # reference sets TCP_NODELAY on every messenger socket;
+            # ref: AsyncConnection socket options ms_tcp_nodelay).
+            # Unix-domain sockets have no Nagle to disable.
+            _set_nodelay(sock)
+            if self._recv_exact(sock, len(BANNER)) != BANNER:
+                sock.close()
+                return
+            nlen = struct.unpack("<H", self._recv_exact(sock, 2))[0]
+            peer = self._recv_exact(sock, nlen).decode()
+            if peer in self._blocked:
+                sock.close()      # partitioned: refuse the dial
+                return
+            peer_inst = self._recv_exact(sock, 8)
+            # symmetric handshake: both sides exchange their last-seen
+            # sequence so BOTH replay their unacked queues — an
+            # acceptor has stranded messages too after a reconnect
+            (peer_seen,) = struct.unpack(
+                "<Q", self._recv_exact(sock, 8))
+            peer_mode = self._recv_exact(sock, 1)[0]
+            if peer_mode != self.mode:
+                # strict negotiation: refusing the mismatch beats
+                # silently downgrading an endpoint that demands secure
+                sock.close()
+                return
+            peer_comp = self._recv_exact(sock, 1)[0]
+            # compression is an optimization: on iff both offer the
+            # same algorithm, else plain (no refusal)
+            comp = self._comp_id if peer_comp == self._comp_id \
+                else COMP_NONE
+            nonce_c = b""
+            if self.mode == MODE_SECURE:
+                nonce_c = self._recv_exact(sock, 16)
+            me = self.name.encode()
+            sock.sendall(BANNER + self.instance_nonce
+                         + struct.pack("<H", len(me)) + me)
+            # report seen=0 toward a NEW peer incarnation (its seq
+            # space restarted) — but do NOT mutate session state yet:
+            # an unauthenticated dialer must not be able to reset the
+            # dedup cursor or fence off live conns. The reset commits
+            # only after the handshake fully validates (below).
+            with self._lock:
+                stored = self._peer_nonce.get(peer)
+                fresh_inst = stored is not None and stored != peer_inst
+                last_seen = 0 if fresh_inst \
+                    else self._in_seq.get(peer, 0)
+            sock.sendall(struct.pack("<Q", last_seen)
+                         + bytes([self.mode]) + bytes([self._comp_id]))
+            if self.mode == MODE_SECURE:
+                import os as _os
+                nonce_s = _os.urandom(16)
+                offers = bytes([peer_comp, self._comp_id])
+                sock.sendall(nonce_s + _auth_proof(
+                    self.secret, b"srv",
+                    peer_inst + nonce_c, self.instance_nonce + nonce_s,
+                    self.name, peer_seen, last_seen, offers))
+                proof_c = self._recv_exact(sock, 32)
+                want = _auth_proof(
+                    self.secret, b"cli",
+                    peer_inst + nonce_c, self.instance_nonce + nonce_s,
+                    peer, peer_seen, last_seen, offers)
+                import hmac as _hmac
+                if not _hmac.compare_digest(proof_c, want):
+                    raise ConnectionError(f"auth failure from {peer}")
+                box = _SecureBox(
+                    _derive_key(self.secret, nonce_c, nonce_s),
+                    tx_prefix=_PREFIX_SRV, rx_prefix=_PREFIX_CLI)
+        except (OSError, ConnectionError, UnicodeDecodeError):
+            sock.close()
+            return
+        self._check_incarnation(peer, peer_inst)   # post-validation
+        conn = _Conn(sock, box, peer_inst=peer_inst, comp=comp,
+                     stats=self.stats, stats_lock=self._stats_lock,
+                     perf=self.perf, flow=self._flow_entry(peer),
+                     flow_lock=self._flow_lock)
+        # adopt+replay must be one atomic step under the peer lock:
+        # published-but-not-yet-replayed is a window where a concurrent
+        # send() (which holds only the peer lock) could emit a NEW
+        # higher-seq frame first, making the receiver's max-seq dedup
+        # discard the later-replayed older frames — silent loss.
+        # _connect() already orders it this way; mirror it here.
+        with self._plock(peer):
+            if not self._adopt(peer, conn, inbound=True):
+                return
+            self._replay(peer, conn, peer_seen)
+
+    def _replay(self, peer: str, conn: _Conn, peer_seen: int) -> None:
+        """Retire entries the peer's handshake already acknowledges
+        (a lost final ACK must not wedge flush forever), then resend
+        the rest in order (lossless_peer replay)."""
+        with self._plock(peer):
+            with self._lock:
+                q = self._unacked.get(peer)
+                while q and q[0][0] <= peer_seen:
+                    q.popleft()
+                pending = list(q or ())
+            try:
+                for seq, tid, payload in pending:
+                    conn.send_frame(seq, tid, payload)
+                    self.perf.inc("replayed")
+            except (OSError, ConnectionError):
+                pass  # conn died again; next reconnect replays
+
+    def _connect(self, peer: str) -> _Conn:
+        """Dial + handshake + replay. Callers hold the peer lock, so
+        only one connect per peer runs and replay order is exact."""
+        with self._plock(peer):
+            if peer in self._blocked:
+                raise ConnectionError(f"partitioned from {peer}")
+            conn = self._conns.get(peer)
+            if conn is not None and conn.alive:
+                return conn  # someone beat us to it
+            addr = self._addr_of[peer]
+            if addr and addr[0] == "unix":
+                sock = socket.socket(socket.AF_UNIX,
+                                     socket.SOCK_STREAM)
+                sock.settimeout(10)
+                sock.connect(addr[1])
+            else:
+                sock = socket.create_connection(tuple(addr),
+                                                timeout=10)
+            _set_nodelay(sock)
+            sock.sendall(BANNER)
+            name_b = self.name.encode()
+            sock.sendall(struct.pack("<H", len(name_b)) + name_b
+                         + self.instance_nonce)
+            with self._lock:
+                my_seen = self._in_seq.get(peer, 0)
+            nonce_c = b""
+            if self.mode == MODE_SECURE:
+                import os as _os
+                nonce_c = _os.urandom(16)
+            sock.sendall(struct.pack("<Q", my_seen)
+                         + bytes([self.mode]) + bytes([self._comp_id])
+                         + nonce_c)
+            if self._recv_exact(sock, len(BANNER)) != BANNER:
+                sock.close()
+                raise ConnectionError(f"bad banner from {peer}")
+            peer_inst = self._recv_exact(sock, 8)
+            # verify WHO answered: addresses are ephemeral localhost
+            # ports, and the OS can hand a dead daemon's port to the
+            # next daemon that binds — a ping meant for the corpse
+            # would then be cheerfully ponged by an unrelated live
+            # daemon, keeping the dead peer "alive" forever and
+            # stalling failure detection (ref: ProtocolV2 peer
+            # entity/addr validation aborting mismatched connections)
+            anlen = struct.unpack("<H", self._recv_exact(sock, 2))[0]
+            actual = self._recv_exact(sock, anlen).decode()
+            if actual != peer:
+                sock.close()
+                raise ConnectionError(
+                    f"dialed {peer} but reached {actual} "
+                    f"(stale address / reused port)")
+            peer_seen = struct.unpack("<Q",
+                                      self._recv_exact(sock, 8))[0]
+            peer_mode = self._recv_exact(sock, 1)[0]
+            if peer_mode != self.mode:
+                sock.close()
+                raise ConnectionError(
+                    f"mode mismatch with {peer}: "
+                    f"ours={self.mode} theirs={peer_mode}")
+            peer_comp = self._recv_exact(sock, 1)[0]
+            comp = self._comp_id if peer_comp == self._comp_id \
+                else COMP_NONE
+            box = None
+            if self.mode == MODE_SECURE:
+                nonce_s = self._recv_exact(sock, 16)
+                proof_s = self._recv_exact(sock, 32)
+                import hmac as _hmac
+                offers = bytes([self._comp_id, peer_comp])
+                want = _auth_proof(
+                    self.secret, b"srv",
+                    self.instance_nonce + nonce_c, peer_inst + nonce_s,
+                    peer, my_seen, peer_seen, offers)
+                if not _hmac.compare_digest(proof_s, want):
+                    sock.close()
+                    raise ConnectionError(f"auth failure from {peer}")
+                sock.sendall(_auth_proof(
+                    self.secret, b"cli",
+                    self.instance_nonce + nonce_c, peer_inst + nonce_s,
+                    self.name, my_seen, peer_seen, offers))
+                box = _SecureBox(
+                    _derive_key(self.secret, nonce_c, nonce_s),
+                    tx_prefix=_PREFIX_CLI, rx_prefix=_PREFIX_SRV)
+            self._check_incarnation(peer, peer_inst)  # post-validation
+            self.perf.inc("reconnects")
+            conn = _Conn(sock, box, peer_inst=peer_inst, comp=comp,
+                         stats=self.stats, stats_lock=self._stats_lock,
+                         perf=self.perf, flow=self._flow_entry(peer),
+                         flow_lock=self._flow_lock)
+            if not self._adopt(peer, conn, inbound=False):
+                # a crossing dial won (we're the non-designated side):
+                # the WINNING connection carries the session now — put
+                # our pending frames on it instead of stranding them
+                # until some future reconnect
+                with self._lock:
+                    winner = self._conns.get(peer)
+                if winner is None or not winner.alive:
+                    raise ConnectionError(
+                        f"lost connection race to {peer}")
+                self._replay(peer, winner, peer_seen)
+                return winner
+            self._replay(peer, conn, peer_seen)
+            return conn
+
+    def _adopt(self, peer: str, conn: _Conn, inbound: bool) -> bool:
+        """Install the connection for `peer`, resolving simultaneous-
+        connect races deterministically (ProtocolV2's race-winner
+        rule): the LOWER name is the designated dialer. The rule must
+        bind BOTH sides — the lower name refuses inbound when it has a
+        live conn, AND the higher name yields its own outbound dial to
+        a live conn — or crossed dials flip-flop killing each other's
+        sockets forever. Returns False if this conn lost."""
+        with self._lock:
+            old = self._conns.get(peer)
+            if (old is not None and old.alive
+                    and ((inbound and self.name < peer)
+                         or (not inbound and self.name > peer))):
+                keep_old = True
+            else:
+                keep_old = False
+                self._conns[peer] = conn
+        if keep_old:
+            conn.close()
+            return False
+        if old is not None and old is not conn:
+            old.close()
+        self._bind_reactor(peer, conn)
+        return True
+
+    def _bind_reactor(self, peer: str, conn: _Conn) -> None:
+        """Bind the handshaken connection to a reactor (round-robin —
+        the AsyncMessenger accept-time worker assignment) and start
+        event-driven reads. The socket goes nonblocking here; the
+        blocking handshake is over."""
+        with self._lock:
+            r = self._reactors[self._rr % len(self._reactors)]
+            self._rr += 1
+        conn.reactor = r
+        conn.sock.setblocking(False)
+
+        def _cb(mask: int, peer=peer, conn=conn) -> None:
+            self._conn_event(peer, conn, mask)
+        r.call(lambda: r.register(conn.sock, selectors.EVENT_READ,
+                                  _cb))
+
+    @staticmethod
+    def _recv_exact(sock: socket.socket, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            got = sock.recv(n - len(buf))
+            if not got:
+                raise ConnectionError("peer closed")
+            buf += got
+        return buf
+
+    # -- send ----------------------------------------------------------------
+
+    def add_peer(self, peer: str, addr) -> None:
+        self._addr_of[peer] = tuple(addr)
+
+    def set_blocked(self, peers) -> None:
+        """Partition injection (ref: src/msg/Messenger.h ms_inject_*
+        debug-knob family; socket failures and delays have their own
+        knobs: set_inject_socket_failures / set_inject_delay): frames
+        to/from these peer NAMES stop flowing — live connections are
+        killed, new dials raise, inbound handshakes are refused.
+        Queued messages stay unacked and replay on heal, which is
+        exactly a real partition's semantics: the network drops
+        frames, the lossless session replays them afterwards."""
+        with self._lock:
+            self._blocked = set(peers)
+            dead = [(p, c) for p, c in self._conns.items()
+                    if p in self._blocked]
+            for p, _ in dead:
+                del self._conns[p]
+        for _, c in dead:
+            c.close()
+
+    def _plock(self, peer: str) -> threading.RLock:
+        with self._lock:
+            lk = self._peer_locks.get(peer)
+            if lk is None:
+                lk = self._peer_locks[peer] = threading.RLock()
+            return lk
+
+    def send(self, peer: str, msg: Message) -> None:
+        """Queue + transmit; survives connection death (replayed on
+        the next reconnect). Raises only if the peer is unknown or the
+        payload won't encode."""
+        if self._stopping:
+            # a shut-down messenger models a DEAD process: its
+            # lingering threads (a reconcile mid-flight at SIGKILL, a
+            # dispatch answering a late ping) must not re-dial out,
+            # replay queues, and resurrect the daemon on the wire —
+            # that keeps a killed OSD "alive" to its peers and stalls
+            # failure detection indefinitely
+            raise ConnectionError(f"{self.name}: messenger is shut down")
+        e = Encoder()
+        msg.encode_payload(e)
+        # segment list, not one joined buffer: data blobs the encoder
+        # appended by reference (blob_ref) travel pointer-style from
+        # here through sendmsg — the unacked queue keeps the same list
+        # for replay, so the aliasing contract extends until the ack
+        payload = e.segments()
+        self.perf.inc("msg_tx")
+        # ms_inject_socket_failures (ref: src/msg/Messenger.h debug
+        # knob): every Nth send tears the live socket down FIRST, so
+        # this message and any unacked predecessors must survive
+        # through reconnect + replay under real traffic. The knob is
+        # snapshotted under the lock: a concurrent disable (every=0)
+        # must not hit the modulo mid-send
+        victim = None
+        delay_s = 0.0
+        with self._lock:
+            every = self._inject_every
+            if every:
+                self._inject_count += 1
+                if self._inject_count % every == 0:
+                    victim = self._conns.get(peer)
+            if self._delay_every:
+                self._delay_count += 1
+                if self._delay_count % self._delay_every == 0:
+                    delay_s = self._inject_rng.uniform(
+                        0, self._delay_max_ms) / 1e3
+                    self._delay_fired += 1
+            ld = self._link_delay.get(peer)
+            if ld is not None and not getattr(_TLS, "in_reactor",
+                                              False):
+                # directed link degrade: base + seeded jitter, drawn
+                # under the lock from the SAME injection RNG so a
+                # logged thrash seed replays the jitter schedule
+                base_ms, jitter_ms = ld
+                delay_s += (base_ms + (self._inject_rng.uniform(
+                    0, jitter_ms) if jitter_ms else 0.0)) / 1e3
+                self._link_delay_fired += 1
+        if delay_s:
+            import time as _time
+            _time.sleep(delay_s)
+        if victim is not None and victim.alive:
+            self._inject_fired += 1
+            victim.close()
+        with self._plock(peer):
+            with self._lock:
+                seq = self._out_seq.get(peer, 0) + 1
+                self._out_seq[peer] = seq
+                self._unacked.setdefault(peer, deque()).append(
+                    (seq, msg.type_id, payload))
+                conn = self._conns.get(peer)
+                if peer in self._blocked:
+                    return   # partitioned: queued, replays on heal
+            try:
+                if conn is None or not conn.alive:
+                    conn = self._connect(peer)
+                    # _connect replayed the queue incl. this message
+                    return
+                conn.send_frame(seq, msg.type_id, payload)
+            except (OSError, ConnectionError):
+                # connection died mid-send: the message stays unacked
+                # and replays on the next send/reconnect. Identity
+                # check: a fresh conn adopted meanwhile must survive.
+                with self._lock:
+                    if conn is not None \
+                            and self._conns.get(peer) is conn:
+                        del self._conns[peer]
+
+    def set_inject_delay(self, every: int, max_ms: float) -> None:
+        """Sleep uniform [0, max_ms] before every Nth transmit (the
+        ms_inject_delay_max/_probability debug role); every=0 turns it
+        off. Delays happen on the SENDER's dispatch path, exactly
+        where the reference's injection sits."""
+        if every < 0 or max_ms < 0:
+            raise ValueError("every and max_ms must be >= 0")
+        with self._lock:
+            self._delay_every = int(every)
+            self._delay_max_ms = float(max_ms)
+
+    def set_link_delay(self, peer: str, delay_ms: float,
+                       jitter_ms: float = 0.0) -> None:
+        """Degrade the directed link self→peer: sleep delay_ms plus
+        uniform [0, jitter_ms] before every transmit toward `peer`
+        (sender dispatch path, same seat as set_inject_delay — but
+        per-LINK and every send, not every-Nth process-wide).
+        delay_ms <= 0 heals the link. Reactor threads are exempt
+        (they must never sleep), so fast-dispatch replies cross
+        undelayed — the degrade stays one-way."""
+        if delay_ms < 0 or jitter_ms < 0:
+            delay_ms, jitter_ms = 0.0, 0.0
+        with self._lock:
+            if delay_ms <= 0 and jitter_ms <= 0:
+                self._link_delay.pop(peer, None)
+            else:
+                self._link_delay[peer] = (float(delay_ms),
+                                          float(jitter_ms))
+
+    def clear_link_delays(self) -> None:
+        """Heal every degraded link (thrasher _clear_faults hook)."""
+        with self._lock:
+            self._link_delay.clear()
+
+    def link_delays(self) -> dict:
+        """Active link degrades, {peer: {delay_ms, jitter_ms}}."""
+        with self._lock:
+            return {p: {"delay_ms": d, "jitter_ms": j}
+                    for p, (d, j) in self._link_delay.items()}
+
+    def _flow_entry(self, peer: str) -> dict:
+        """The per-peer flow ledger entry (created zeroed). Shared by
+        every conn toward `peer` across reconnects."""
+        with self._flow_lock:
+            f = self._flow.get(peer)
+            if f is None:
+                f = self._flow[peer] = {
+                    "bytes_tx": 0, "frames_tx": 0,
+                    "bytes_rx": 0, "frames_rx": 0,
+                    "stalls": 0, "stall_time_s": 0.0,
+                    "writeq_bytes": 0, "writeq_frames": 0,
+                }
+            return f
+
+    def flow_dump(self) -> dict:
+        """Snapshot of per-peer flow: counters plus LIVE write-queue
+        depth for peers with an open conn (the ledger's gauge is only
+        as fresh as the last flush; prefer the queue itself)."""
+        with self._flow_lock:
+            out = {p: dict(f) for p, f in self._flow.items()}
+        with self._lock:
+            conns = list(self._conns.items())
+        for p, c in conns:
+            if p in out and c.alive:
+                out[p]["writeq_bytes"] = c._wq_bytes
+                out[p]["writeq_frames"] = len(c._wq)
+        for f in out.values():
+            f["stall_time_s"] = round(f["stall_time_s"], 6)
+        return out
+
+    def seed_injection(self, seed: int) -> None:
+        """Reset the injection RNG and counters to a deterministic
+        state: with the same seed and the same send sequence, the
+        exact same sends get torn down / delayed by the same amounts —
+        what makes a logged thrash seed a real reproducer."""
+        import random as _random
+        with self._lock:
+            self._inject_rng = _random.Random(seed)
+            self._inject_count = 0
+            self._delay_count = 0
+
+    def set_inject_socket_failures(self, every: int) -> None:
+        """Tear the live connection down on every Nth send (the
+        reference's ms_inject_socket_failures debug knob); 0 turns
+        injection off. Exactly-once delivery must hold regardless —
+        the lossless replay + receiver seq dedup absorb the chaos."""
+        if every < 0:
+            raise ValueError("every must be >= 0")
+        with self._lock:
+            self._inject_every = int(every)
+
+    def flush(self, peer: str, timeout: float = 10.0) -> bool:
+        """Block until the peer acked everything (or timeout). The
+        sender-side barrier tests use; returns False on timeout."""
+        import time
+        t_end = time.monotonic() + timeout
+        while time.monotonic() < t_end:
+            with self._lock:
+                if not self._unacked.get(peer):
+                    return True
+                conn = self._conns.get(peer)
+            if conn is None or not conn.alive:
+                try:
+                    self._connect(peer)
+                except (OSError, ConnectionError, KeyError):
+                    pass
+            time.sleep(0.01)
+        return False
+
+    # -- receive -------------------------------------------------------------
+
+    def _conn_event(self, peer: str, conn: _Conn, mask: int) -> None:
+        """Reactor event entry for one connection. Read side drains
+        the socket and parses every complete frame (the _read_loop
+        body, event-driven); write side resumes the queued flush."""
+        try:
+            if mask & selectors.EVENT_READ:
+                self._conn_read(peer, conn)
+            if mask & selectors.EVENT_WRITE and conn.alive:
+                conn._on_writable()
+            if not conn.alive:
+                raise ConnectionError("connection closed")
+        except (OSError, ConnectionError, ValueError):
+            self._reactor_reap(peer, conn)
+
+    def _conn_read(self, peer: str, conn: _Conn) -> None:
+        # drain with a per-event byte budget: one hot connection must
+        # not starve the rest of this reactor (epoll is level-
+        # triggered, the remainder fires on the next loop)
+        budget = 1 << 20
+        while budget > 0 and conn.alive:
+            try:
+                chunk = conn.sock.recv(1 << 18)
+            except (BlockingIOError, InterruptedError):
+                return
+            except OSError:
+                raise ConnectionError("recv failed")
+            if not chunk:
+                raise ConnectionError("peer closed")
+            budget -= len(chunk)
+            rx = conn._rx
+            rx += chunk
+            pos = 0
+            n = len(rx)
+            tail = 4 if conn.box is None else 0
+            while n - pos >= 4:
+                (blen,) = struct.unpack_from("<I", rx, pos)
+                floor = 10 if conn.box is None \
+                    else 10 + _NONCE + _GCM_TAG
+                if blen < floor or blen > (1 << 26):
+                    raise ConnectionError(f"bad frame length {blen}")
+                if n - pos < 4 + blen + tail:
+                    break
+                raw_len = bytes(rx[pos:pos + 4])
+                body = bytes(rx[pos + 4:pos + 4 + blen])
+                crc = None
+                if tail:
+                    (crc,) = struct.unpack_from("<I", rx,
+                                                pos + 4 + blen)
+                pos += 4 + blen + tail
+                self._on_frame(peer, conn, raw_len, body, crc)
+            if pos:
+                del rx[:pos]
+
+    def _on_frame(self, peer: str, conn: _Conn, raw_len: bytes,
+                  body: bytes, crc: int | None) -> None:
+        """One complete wire frame: verify, dedup, ack, dispatch —
+        bit-for-bit the blocking read loop's semantics. Raises
+        ConnectionError to kill the session (corruption, stale
+        incarnation), exactly as before."""
+        blen = len(body)
+        if conn.box is None:
+            t0 = _time_mod.perf_counter()
+            if _crc_iov([raw_len, body]) != crc:
+                # ProtocolV2 crc mode: corrupt frame kills the
+                # session; replay redelivers after reconnect
+                raise ConnectionError("frame crc mismatch")
+            self.perf.tinc("crc_time",
+                           _time_mod.perf_counter() - t0)
+            self.perf.inc_many((("frames_rx", 1),
+                                ("bytes_rx", 8 + blen)))
+            rx_wire = 8 + blen
+        else:
+            # secure mode: the GCM tag is the integrity check
+            # (and the length header is bound in as AAD)
+            t0 = _time_mod.perf_counter()
+            body = conn.box.open(body, raw_len)
+            self.perf.tinc("open_time",
+                           _time_mod.perf_counter() - t0)
+            self.perf.inc_many((("frames_rx", 1),
+                                ("bytes_rx", 4 + blen)))
+            rx_wire = 4 + blen
+        if conn.flow is not None:
+            with conn.flow_lock:
+                conn.flow["frames_rx"] += 1
+                conn.flow["bytes_rx"] += rx_wire
+        seq, tid = struct.unpack_from("<QH", body)
+        # zero-copy view over the payload (Decoder accepts a
+        # memoryview; blob fields copy out only what they keep)
+        payload = memoryview(body)[10:]
+        if tid & _COMP_FLAG:
+            import zlib
+            try:
+                o = zlib.decompressobj()
+                payload = o.decompress(payload, _DECOMP_MAX)
+                if o.unconsumed_tail:
+                    raise ConnectionError(
+                        "decompressed frame exceeds cap")
+                if not o.eof or o.unused_data:
+                    # a TRUNCATED stream decompresses without
+                    # error — delivering the partial payload
+                    # would ack-and-lose the message
+                    raise ConnectionError(
+                        "compressed frame truncated")
+            except zlib.error:
+                # garbled compressed body: kill the session
+                # exactly like a crc mismatch; replay heals
+                raise ConnectionError(
+                    "compressed frame corrupt")
+            tid &= _COMP_FLAG - 1
+            with self._stats_lock:
+                self.stats["rx_compressed"] = \
+                    self.stats.get("rx_compressed", 0) + 1
+            self.perf.inc("rx_compressed")
+        # incarnation fencing: a conn authenticated against a
+        # peer incarnation that is no longer current must not
+        # touch session state — a dying incarnation's buffered
+        # frames arriving AFTER the new one's handshake reset
+        # would re-poison in_seq with stale high seqs (black-
+        # holing the new peer) or retire fresh unacked via old
+        # ACKs. Kill the stale conn instead.
+        with self._lock:
+            cur = self._peer_nonce.get(peer)
+        if cur is not None and conn.peer_inst != cur:
+            raise ConnectionError(
+                "frame from a stale peer incarnation")
+        if tid == ACK_TYPE:
+            if len(payload) != 8:
+                raise ConnectionError("malformed ACK frame")
+            (acked,) = struct.unpack("<Q", payload)
+            self.perf.inc("acks_rx")
+            with self._lock:
+                q = self._unacked.get(peer)
+                while q and q[0][0] <= acked:
+                    q.popleft()
+            return
+        deliver = False
+        with self._lock:
+            if seq > self._in_seq.get(peer, 0):
+                self._in_seq[peer] = seq
+                deliver = True  # else: replayed dup, drop
+            ack_seq = self._in_seq.get(peer, 0)
+        if not deliver:
+            self.perf.inc("dup_rx")
+        # coalesced cumulative ack: every ACK_BATCH frames
+        # inline, the rest via the ~2ms flusher — replies
+        # never wait on acks (they only retire the sender's
+        # replay queue), so the delay costs nothing while
+        # cutting the rpc pattern's frame count by a third
+        if ack_seq - conn.acked_out >= ACK_BATCH:
+            conn.acked_out = max(conn.acked_out, ack_seq)
+            try:
+                conn.send_frame(0, ACK_TYPE,
+                                struct.pack("<Q", ack_seq))
+            except (OSError, ConnectionError):
+                pass
+        else:
+            self._ack_event.set()
+        if deliver:
+            self.perf.inc("msg_rx")
+            cls = _MSG_TYPES.get(tid)
+            ent = self._handlers.get(tid)
+            if cls is not None and ent is not None:
+                fn, fast = ent
+                if not fast:
+                    # queued dispatch: decode + run on the dispatch
+                    # thread so a blocking fold never stalls this
+                    # reactor (replies keep draining meanwhile)
+                    self._dispatch_q.put((fn, peer, cls, payload))
+                    return
+                try:
+                    fn(peer, cls.decode_payload(Decoder(payload)))
+                except Exception as e:  # poison message: the
+                    # frame was crc-valid and is already acked;
+                    # contain the blast radius to this message
+                    # (fast dispatch must not kill the session)
+                    from ..utils.log import g_log
+                    g_log.dout("msgr", 0,
+                               f"dispatch error from {peer} "
+                               f"type={tid:#x} seq={seq}: {e!r}")
+
+    def _reactor_reap(self, peer: str, conn: _Conn) -> None:
+        """Reactor-side teardown: unregister + close the fd HERE (the
+        only thread that may — a foreign close would race the fd
+        number back into the selector) and drop the session's claim
+        on this conn."""
+        conn.alive = False
+        with conn.wlock:
+            conn._wcond.notify_all()
+        conn._reactor_close()
+        with self._lock:
+            if self._conns.get(peer) is conn:
+                del self._conns[peer]
+
+    def _ack_loop(self) -> None:
+        """Flush owed cumulative acks ~2ms after a burst: the sender's
+        replay queue retires promptly even when the inline every-Nth
+        ack didn't fire (a lone frame, a stream that went quiet)."""
+        import time as _time
+        while not self._stopping:
+            if not self._ack_event.wait(timeout=0.5):
+                continue
+            self._ack_event.clear()
+            _time.sleep(0.02)           # let the burst coalesce
+            with self._lock:
+                conns = list(self._conns.items())
+                seqs = {p: self._in_seq.get(p, 0) for p, _ in conns}
+            for peer, conn in conns:
+                seq = seqs[peer]
+                if conn.alive and seq > conn.acked_out:
+                    conn.acked_out = max(conn.acked_out, seq)
+                    try:
+                        conn.send_frame(0, ACK_TYPE,
+                                        struct.pack("<Q", seq))
+                    except (OSError, ConnectionError):
+                        pass
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def shutdown(self) -> None:
+        self._stopping = True
+        self._ack_event.set()   # unblock the flusher so it can exit
+        with self._lock:
+            conns = list(self._conns.values())
+            self._conns.clear()
+        for c in conns:
+            # wake peers + blocked senders now; the fd itself closes
+            # with the reactor (it owns every registered socket)
+            c.alive = False
+            try:
+                c.sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            with c.wlock:
+                c._wcond.notify_all()
+        for r in self._reactors:
+            r.stop()
+        for r in self._reactors:
+            r.join(timeout=2.0)
+        for c in conns:
+            if c.reactor is None:
+                c._close_fd()
+        try:
+            self._listener.close()   # reactors are gone: direct close
+        except OSError:              # is race-free now (usually a
+            pass                     # no-op — reactor 0 owned it)
+        if self._uds_path is not None:
+            import os as _os
+            try:
+                _os.unlink(self._uds_path)
+            except OSError:
+                pass

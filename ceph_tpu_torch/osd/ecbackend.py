@@ -28,17 +28,18 @@ The fused programs' CRCs are one `crc32c_sets` launch a call.
 CRCs leave the device as int64 tensors holding uint32 values and are
 turned into uint32 arrays before they reach HashInfo or a comparison.
 
-Recovery stages helper rows from local stores: full rows, or, for a
-Clay single-loss plan, only the sub-chunk ranges of the repair planes
+Recovery stages helper rows from local stores or, over the wire tier's
+`RemoteStore` (osd/standalone.py), from `readv_submit` /
+`readv_ranges_submit` frames: full rows, or, for a Clay single-loss
+plan, only the sub-chunk ranges of the repair planes
 (`readv_ranges_host`: the source verifies each full row against its
-hinfo and CRCs the shipped bytes on the backend's device).
+hinfo and CRCs the shipped bytes on its backend's device).
 
-The stores (`MemStore`, `osd/tinstore.py`'s TinStore) and the native
-host library (`native/`) are ported. Left for later slices: the
-backend's native host-encode and host-CRC modes over that library (the
-twin's SSE codec and CRCs for CPU backends; ROADMAP queue 1 item 3) and
-remote-store staging (`readv_submit` and `readv_ranges_submit` frames of
-the wire tier; a store that offers them is refused; queue 1 item 5).
+CPU backends take the twin's host modes when the port's native library
+is built with hardware CRC32C (`_host_crc_available(device)`): the
+native RS codec encodes writes and parity deltas, and the CRCs of host
+rows run as SSE4.2 instructions, with the twin's bytes and counters. A
+card backend never takes them.
 """
 
 from __future__ import annotations
@@ -318,6 +319,40 @@ def _build_recover_program(dec_fn, verify: bool, host_crc: bool):
 
 # -- host-side CRC helpers -----------------------------------------------------
 
+@functools.lru_cache(maxsize=64)
+def _host_encoder_handle(matrix_bytes: bytes, k: int, m: int):
+    """Process-wide native RS encoder per coding matrix (the same
+    sharing rule as the fused-program cache). Handles live for the
+    process — ec_destroy never runs, matching the program caches."""
+    try:
+        from .. import native
+        h = native.lib().ec_create_with_matrix(k, m, matrix_bytes)
+        return h or None
+    except Exception:   # noqa: BLE001 — no native lib: device path
+        return None
+
+
+@functools.lru_cache(maxsize=1)
+def _native_crc_ready() -> bool:
+    try:
+        from .. import native
+        return native.ready() and native.crc32c_hw()
+    except Exception:   # noqa: BLE001 — any native trouble = no mode
+        return False
+
+
+def _host_crc_available(device=None) -> bool:
+    """Host-integrity mode: a CPU backend with the native SSE4.2
+    crc32c built checksums (and RS-encodes) host rows in the native
+    library, as the twin does on its CPU backend. `device` is the
+    backend's; None means the card (the port's default), and a card
+    keeps its CRCs on the card, so the mode is off there. Never builds
+    the library (the twin's `ready()` gate)."""
+    if device is None or torch.device(device).type != "cpu":
+        return False
+    return _native_crc_ready()
+
+
 @functools.lru_cache(maxsize=4096)
 def _shift_cols(nbytes: int) -> tuple:
     """Packed GF(2) column constants of the CRC32C shift-by-nbytes
@@ -347,13 +382,21 @@ def _rows_crc0(rows: np.ndarray, device) -> np.ndarray:
     delta-row convention: a zero seed composes under XOR and position
     shifts)."""
     rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    if _host_crc_available(device):
+        from .. import native
+        return np.asarray(native.native_crc32c_rows(0, rows),
+                          dtype=np.uint32)
     return _u32(run_bucketed(lambda b: crc32c_blocks(b, init=0, xorout=0),
                              to_device(rows, resolve_device(device))))
 
 
 def _rows_crc32c(rows: np.ndarray, device) -> np.ndarray:
     """(B, L) byte rows -> (B,) raw crc32c (seed -1, the HashInfo
-    convention) on `device`."""
+    convention) on `device` (native SSE4.2 in the host mode)."""
+    if _host_crc_available(device):
+        from .. import native
+        return native.native_crc32c_rows(
+            0xFFFFFFFF, np.ascontiguousarray(rows, dtype=np.uint8))
     return PGBackend._batched_crcs(rows, resolve_device(device))
 
 
@@ -483,8 +526,43 @@ class ECBackend(PGBackend):
         """(B, k, sl) data rows -> (slot-ordered (B, n, sl) shards,
         slot-ordered (B, n) uint32 hinfo CRCs). For RS the encode and
         both CRC sets run as ONE fused, B-bucketed program on the
-        device with one fetch; other coders take the generic path."""
+        device with one fetch, or in the native library on a CPU
+        backend in the host mode (the twin's; same bytes); other coders
+        take the generic path."""
         B = data_shards.shape[0]
+        if isinstance(self.coder, ReedSolomon) \
+                and _host_crc_available(self.device):
+            mat = np.ascontiguousarray(self.coder.matrix, dtype=np.uint8)
+            handle = _host_encoder_handle(mat.tobytes(), self.k, self.m)
+            if handle is not None:
+                from .. import native as _native
+                import ctypes as _ctypes
+                self.perf.inc_many(
+                    (("host_encode_launches", 1),
+                     ("encode_bytes", int(data_shards.size))))
+                with span("ecbackend.write.encode",
+                          counters=self.perf, key="encode_time"):
+                    data_c = np.ascontiguousarray(data_shards)
+                    parity = np.zeros((B, self.m, sl), np.uint8)
+                    rc = _native.lib().ec_encode(
+                        handle,
+                        data_c.ctypes.data_as(_ctypes.c_char_p),
+                        parity.ctypes.data_as(_ctypes.c_char_p),
+                        sl, B)
+                    if rc == 0:
+                        dense = np.concatenate([data_shards, parity],
+                                               axis=1)
+                        dense_crcs = _native.native_crc32c_rows(
+                            0xFFFFFFFF,
+                            np.ascontiguousarray(dense).reshape(
+                                B * self.n, sl)).reshape(B, self.n)
+                        shards = self._slots_from_dense(dense)
+                        if self._identity_mapping:
+                            return shards, dense_crcs
+                        crcs = np.empty_like(dense_crcs)
+                        crcs[:, self._perm] = dense_crcs
+                        return shards, crcs
+                # rc != 0: the fused program below, as in the twin
         if isinstance(self.coder, ReedSolomon):
             bucket = pow2_bucket(B)
             mat = np.ascontiguousarray(self.coder.matrix, dtype=np.uint8)
@@ -922,11 +1000,32 @@ class ECBackend(PGBackend):
                            ) -> tuple[np.ndarray, np.ndarray]:
         """(B, t, wl) data deltas -> ((B, m, wl) parity deltas,
         (B, t+m) uint32 zero-seed CRCs of data+parity delta rows).
-        Static-matrix coders take the fused delta program on the
+        Static-matrix coders take the native host codec (a CPU
+        backend in the host mode) or the fused delta program on the
         device; the rest go through parity_delta's generic XOR-linear
         encode."""
         B, t, wl = deltas.shape
         D = self.coder.delta_matrix(touched)
+        if D is not None and _host_crc_available(self.device):
+            handle = _host_encoder_handle(
+                np.ascontiguousarray(D, np.uint8).tobytes(), t, self.m)
+            if handle is not None:
+                from .. import native as _native
+                import ctypes as _ctypes
+                data_c = np.ascontiguousarray(deltas)
+                parity = np.zeros((B, self.m, wl), np.uint8)
+                rc = _native.lib().ec_encode(
+                    handle,
+                    data_c.ctypes.data_as(_ctypes.c_char_p),
+                    parity.ctypes.data_as(_ctypes.c_char_p), wl, B)
+                if rc == 0:
+                    self.perf.inc("rmw_delta_launches")
+                    rows = np.concatenate([deltas, parity], axis=1)
+                    crcs = _native.native_crc32c_rows(
+                        0, np.ascontiguousarray(rows).reshape(
+                            B * (t + self.m), wl)).reshape(
+                                B, t + self.m)
+                    return parity, crcs
         if D is not None:
             bucket = pow2_bucket(B)
             ci0 = _fused_delta_fn.cache_info()
@@ -1911,6 +2010,10 @@ class ECBackend(PGBackend):
 _RECOVER_PROGRAMS: dict = {}
 _RECOVER_PROGRAMS_LOCK = _threading.Lock()
 
+#: one shard-fetch frame's byte budget (readv chunks larger batches so
+#: a single source OSD never serializes a multi-MiB frame per pull)
+RECOVERY_FETCH_BYTES = 8 << 20
+
 
 class _RecoveryPlan:
     """One PG's recovery intent (opened by ECBackend.plan_recovery):
@@ -2006,8 +2109,13 @@ class RecoveryRunner:
 
     def __init__(self, plans, batch: int = 128, perf=None,
                  push_window_ops: int = 0, push_window_bytes: int = 0,
-                 host_crc: bool = False):
+                 host_crc: bool | None = None):
         self.plans = [p for p in plans if p is not None]
+        if host_crc is None:
+            # the twin's auto-detection, per backend device: CPU
+            # backends with the native hardware CRC take the host mode
+            host_crc = bool(self.plans) and all(
+                _host_crc_available(p.be.device) for p in self.plans)
         if host_crc and any(p.be.device.type != "cpu" for p in self.plans):
             # the twin's mode hands CRCs to its native SSE4.2 library;
             # a card backend keeps its CRCs on the card, where the mode
@@ -2270,7 +2378,7 @@ class RecoveryRunner:
         exp = np.zeros((B, H), dtype=np.uint32)
         with span("ecbackend.recover.stage", counters=self.perf,
                   key="recover_stage_time"):
-            pre_bad = self._stage(live, sl, stack, exp, proto.verify)
+            pre_bad = self._stage(live, sl, rl, stack, exp, proto.verify)
         wire = B * H * rl
         self.stats["helper_bytes_on_wire"] += wire
         self.perf.inc("recover_wire_bytes", wire)
@@ -2316,10 +2424,16 @@ class RecoveryRunner:
             segs[-1][2].append(name)
         return segs
 
-    def _stage(self, live, sl: int, stack: np.ndarray, exp: np.ndarray,
-               verify: bool) -> dict[int, set[int]]:
-        """Fill (B, H, rl) helper rows + the expected fold inputs from
-        local stores.
+    def _stage(self, live, sl: int, rl: int, stack: np.ndarray,
+               exp: np.ndarray, verify: bool) -> dict[int, set[int]]:
+        """Fill (B, H, rl) helper rows + the expected fold inputs.
+        `stack` is the numpy view of the runner's staging buffer (pinned
+        for a card backend): local rows and frame replies are copied
+        into it, never into fresh tensors. Remote stores submit ONE
+        readv frame per (PG, helper shard), chunked by
+        RECOVERY_FETCH_BYTES, data AND integrity in the frame, and all
+        frames are on the wire before any reply is collected (the
+        windowed PULL: fetches from different source OSDs overlap).
 
         Full-row plans ship whole shards and `exp` carries the stored
         hinfo CRCs (the whole-row fold). Range plans ship only the
@@ -2328,8 +2442,8 @@ class RecoveryRunner:
         carries the shipped ranges' CRCs, and rows whose full shard
         failed at the source come back in the returned
         {batch row: {helper slot}} map — the decode proceeds but those
-        objects re-decode through the full-row fallback. Stores of the
-        wire tier (readv frames) are refused until it is ported."""
+        objects re-decode through the full-row fallback."""
+        waits: list[tuple] = []
         pre_bad: dict[int, set[int]] = {}
         for plan, r0, names in self._segments(live):
             nb = len(names)
@@ -2337,22 +2451,40 @@ class RecoveryRunner:
             for hi, s in enumerate(plan.helper):
                 st = plan.be._store(s)
                 cid = shard_cid(plan.be.pg, s)
-                if getattr(st, "readv_ranges_submit", None) is not None \
-                        or getattr(st, "readv_submit", None) is not None:
-                    raise NotImplementedError(
-                        "remote-store staging (readv frames) is not "
-                        "ported: ROADMAP queue 1 item 5, the wire tier's "
-                        "daemons")
+                # chunk by the fetch byte budget so one source OSD
+                # never serializes a giant frame
+                per = max(1, RECOVERY_FETCH_BYTES // max(1, rl))
                 if ranges is not None:
-                    rows, crcs, bad = readv_ranges_host(
-                        st, cid, names, sl, ranges,
-                        HINFO_KEY if verify else None,
-                        device=plan.be.device)
-                    stack[r0:r0 + nb, hi, :] = rows
-                    if crcs is not None:
-                        exp[r0:r0 + nb, hi] = crcs
-                    for b in bad:
-                        pre_bad.setdefault(r0 + b, set()).add(s)
+                    subr = getattr(st, "readv_ranges_submit", None)
+                    for c0 in range(0, nb, per):
+                        cnames = names[c0:c0 + per]
+                        if subr is not None:
+                            waits.append(
+                                (subr(cid, cnames, sl, ranges,
+                                      HINFO_KEY if verify else None),
+                                 r0 + c0, hi, len(cnames), s))
+                            continue
+                        rows, crcs, bad = readv_ranges_host(
+                            st, cid, cnames, sl, ranges,
+                            HINFO_KEY if verify else None,
+                            device=plan.be.device)
+                        stack[r0 + c0:r0 + c0 + len(cnames), hi, :] \
+                            = rows
+                        if crcs is not None:
+                            exp[r0 + c0:r0 + c0 + len(cnames), hi] \
+                                = crcs
+                        for b in bad:
+                            pre_bad.setdefault(r0 + c0 + b,
+                                               set()).add(s)
+                    continue
+                subv = getattr(st, "readv_submit", None)
+                if subv is not None:
+                    for c0 in range(0, nb, per):
+                        cnames = names[c0:c0 + per]
+                        waits.append(
+                            (subv(cid, cnames, sl,
+                                  HINFO_KEY if verify else None),
+                             r0 + c0, hi, len(cnames), None))
                     continue
                 out = stack[r0:r0 + nb, hi, :]
                 rb = getattr(st, "read_batch", None)
@@ -2366,6 +2498,31 @@ class RecoveryRunner:
                         hb = st.getattr(cid, name, HINFO_KEY)
                         exp[r0 + bi, hi] = HashInfo.from_bytes(
                             hb).get_chunk_hash(0)
+        for handle, r0, hi, nb, range_slot in waits:
+            if range_slot is not None:
+                data, crcs, bad = handle.result()
+                rows = np.frombuffer(data, np.uint8)
+                if rows.size != nb * rl:
+                    raise ValueError(
+                        f"readv_ranges: got {rows.size} bytes, "
+                        f"expected {nb * rl}")
+                stack[r0:r0 + nb, hi, :] = rows.reshape(nb, rl)
+                if crcs is not None:
+                    exp[r0:r0 + nb, hi] = crcs
+                for b in bad:
+                    pre_bad.setdefault(r0 + int(b),
+                                       set()).add(range_slot)
+                continue
+            data, attrs = handle.result()
+            rows = np.frombuffer(data, np.uint8)
+            if rows.size != nb * sl:
+                raise ValueError(
+                    f"readv: got {rows.size} bytes, expected {nb * sl}")
+            stack[r0:r0 + nb, hi, :] = rows.reshape(nb, sl)
+            if attrs is not None:
+                for bi, hb in enumerate(attrs):
+                    exp[r0 + bi, hi] = HashInfo.from_bytes(
+                        hb).get_chunk_hash(0)
         return pre_bad
 
     def _locate_bad_helpers(self, plan, name: str, bi: int,

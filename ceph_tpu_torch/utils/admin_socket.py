@@ -1,0 +1,150 @@
+"""AdminSocket — the per-daemon Unix-socket command endpoint.
+
+Rebuild of the reference's admin socket (ref: src/common/
+admin_socket.cc: every daemon binds `<name>.asok` in the run dir and
+serves registered commands — `ceph daemon osd.0 perf dump` is a
+short-lived connection that writes the command and reads one JSON
+reply). Unlike the wire-tier `admin` MOSDOp (which needs a booted
+client, a map, and cephx), the asok is the operator's side door: it
+works against a wedged daemon and needs only filesystem access —
+which is exactly why the reference keeps both surfaces.
+
+Protocol (one round trip, then close):
+    client -> server:  <command line>\n
+    server -> client:  b"OK\n" + JSON   |   b"ERR\n" + message
+
+Commands are dispatched by LONGEST-PREFIX match so multi-word
+commands ("perf dump") and argumented ones ("trace start /tmp/t")
+share one registry; the remainder of the line is passed to the
+handler as its argument string.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import socket
+import threading
+
+
+class AdminSocketError(RuntimeError):
+    """The daemon answered ERR (unknown command / handler raised)."""
+
+
+class AdminSocket:
+    """One daemon's command endpoint on a Unix socket path."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._commands: dict[str, tuple] = {}   # cmd -> (fn, help)
+        self._listener: socket.socket | None = None
+        self._stopping = False
+        self.register("help", self._help,
+                      "list registered commands")
+
+    # -- registry ------------------------------------------------------------
+
+    def register(self, command: str, fn, help: str = "") -> None:
+        """fn(args: str) -> json-serializable. `command` may contain
+        spaces; the longest registered prefix of the request line
+        wins and the rest of the line becomes `args`."""
+        self._commands[command] = (fn, help)
+
+    def _help(self, args: str) -> dict:
+        return {cmd: h for cmd, (_fn, h) in sorted(self._commands.items())}
+
+    def _dispatch(self, line: str) -> bytes:
+        line = line.strip()
+        best = None
+        for cmd in self._commands:
+            if (line == cmd or line.startswith(cmd + " ")) \
+                    and (best is None or len(cmd) > len(best)):
+                best = cmd
+        if best is None:
+            known = sorted(self._commands)
+            return (b"ERR\n" + f"unknown command {line!r}; "
+                    f"known: {known}".encode())
+        fn, _help = self._commands[best]
+        try:
+            out = fn(line[len(best):].strip())
+        except Exception as e:   # noqa: BLE001 — the daemon must
+            # answer, not die, on a bad admin command
+            return b"ERR\n" + f"{type(e).__name__}: {e}".encode()
+        return b"OK\n" + json.dumps(out, sort_keys=True,
+                                    default=str).encode()
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> "AdminSocket":
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        try:
+            os.unlink(self.path)     # a dead daemon's stale socket
+        except FileNotFoundError:
+            pass
+        srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        srv.bind(self.path)
+        srv.listen(8)
+        self._listener = srv
+        threading.Thread(target=self._accept_loop, daemon=True).start()
+        return self
+
+    def stop(self) -> None:
+        self._stopping = True
+        if self._listener is not None:
+            try:
+                self._listener.close()
+            except OSError:
+                pass
+        try:
+            os.unlink(self.path)
+        except OSError:
+            pass
+
+    def _accept_loop(self) -> None:
+        while not self._stopping:
+            try:
+                conn, _ = self._listener.accept()
+            except OSError:
+                return               # closed by stop()
+            threading.Thread(target=self._serve, args=(conn,),
+                             daemon=True).start()
+
+    def _serve(self, conn: socket.socket) -> None:
+        try:
+            conn.settimeout(5.0)
+            buf = b""
+            while b"\n" not in buf and len(buf) < 1 << 16:
+                got = conn.recv(4096)
+                if not got:
+                    break
+                buf += got
+            line = buf.split(b"\n", 1)[0].decode(errors="replace")
+            conn.sendall(self._dispatch(line))
+        except (OSError, UnicodeDecodeError):
+            pass
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+
+def admin_command(path: str, command: str, timeout: float = 10.0):
+    """`ceph daemon <name> <cmd>` client half: one command against a
+    daemon's .asok, parsed reply or AdminSocketError."""
+    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+        s.settimeout(timeout)
+        s.connect(path)
+        s.sendall(command.encode() + b"\n")
+        s.shutdown(socket.SHUT_WR)
+        buf = b""
+        while True:
+            got = s.recv(1 << 16)
+            if not got:
+                break
+            buf += got
+    status, _, body = buf.partition(b"\n")
+    if status == b"OK":
+        return json.loads(body)
+    raise AdminSocketError(body.decode(errors="replace")
+                           or "empty admin socket reply")

@@ -153,9 +153,31 @@ Phases, each of which fails loudly (exit code 1, no result line):
      and sent, the step's ms (CUDA events), gf_apply's and NCCL's
      device ms in a utils/tracing trace, and the all-gather alone at
      the step's shape by CUDA events, with its GB/s beside its bound at
-     450 GB/s each way on NVLink. Any rank's failure fails the phase.
-Phases 3, 5, 7, 8, 9, 11 and 12 print the CRC32C kernel's launches and
-fail if there are none; phase 9 also needs XXH32, XXH64 and gf_apply
+     450 GB/s each way on NVLink. Any rank's failure fails the phase;
+ 14. the wire tier (osd/standalone.py): after the kernels and the native
+     library are built and the card is touched, a StandaloneCluster of
+     12 OSD daemons, three Paxos monitors and a client over AES-GCM
+     sessions (secret from os.urandom; op_window 16, op_timeout 3.0 as
+     tools/rados_bench.py gives its standalone writes; heartbeat grace
+     SA_GRACE, SA_KILL_GRACE from the kill on, and no cephx: see
+     SA_CEPHX), pg_num 32 of RS k=8 m=3 over 512 KiB chunks, every
+     interaction a frame on the Messenger, every encode, delta, decode
+     and CRC on the card: 256 x 4 MiB objects written 16 at a time
+     (traced for the device's idle share) and read back with read_many,
+     256 seeded 4 KiB write_at overwrites (the parity delta over
+     rmw_fetch frames), an OSD holding shards killed, 32 degraded reads
+     (of objects whose primary lives), wait_for_down, wait_for_clean
+     (120 s; recovery staged from readv frames), every byte read again
+     against a host model and a deep scrub of every PG. Prints write
+     and read GB/s, write_at ops/s, kill -> down seconds and the last
+     recovered object's seconds after the down mark (a watcher
+     thread's), recovered objects/s and recover_wire_bytes, the
+     messengers' frames and bytes, gf_apply's and CRC32C's launches by
+     shape; fails unless gf_apply launched an encode, the (1, 3, 4096)
+     delta and a decode, CRC32C launched, recovery staged a readv
+     frame, every read is exact and the scrub is clean.
+Phases 3, 5, 7, 8, 9, 11, 12 and 14 print the CRC32C kernel's launches
+and fail if there are none; phase 9 also needs XXH32, XXH64 and gf_apply
 launches, phase 10 a scorer launch a round.
 Phase 4 also times the checksum kernels at the main path's shapes
 (CRC32C over 256 and 352 rows of 512 KiB, the fused write's and the
@@ -222,6 +244,12 @@ then prints the card and one JSON object of its results.
 
 does the same for phase 13 (gf_apply.cu only): on one card a (1, 1)
 mesh; on a host with four cards, NCCL across them at (1, 4) and (2, 2).
+
+    python3 chip_smoke.py --standalone
+
+builds gf_apply.cu, csum.cu and the native library and runs phase 14
+alone, with its gates, then prints the card and one JSON object of its
+results.
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
 
@@ -237,6 +265,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -292,6 +321,22 @@ RGW_OBJECT = 1 << 20
 RGW_PARTS = 8
 RGW_PART = 8 << 20
 MESH_OBJECTS = 32            # phase 13: objects a dp row
+SA_OSDS = 12                 # phase 14: the standalone cluster
+SA_PGS = 32
+SA_OBJECTS = 256
+SA_INFLIGHT = 16             # op_window: rados bench -t 16
+SA_OP_TIMEOUT = 3.0          # tools/rados_bench.py's standalone writes
+SA_RANDOM = 256              # 4 KiB write_at overwrites
+SA_DEGRADED = 32
+# 12 daemons in one process, the JAX package's alike (PERF.md PR 12):
+# they miss the 1.2 s default heartbeat grace at boot, so the phase
+# writes and reads under SA_GRACE and kills under SA_KILL_GRACE; and the
+# monitors' cephx ticket service times out for a third of the OSDs, so
+# the phase runs AES-GCM sessions without cephx (the CPU tests hold
+# cephx on 8 OSDs)
+SA_GRACE = 60.0
+SA_KILL_GRACE = 8.0
+SA_CEPHX = False
 
 LRC_PROFILE = "plugin=lrc k=8 m=4 l=4"
 CLAY_PROFILE = "plugin=clay k=8 m=4 d=11"
@@ -3418,6 +3463,304 @@ def mesh_phase(torch) -> dict:
             "by_shape": dict(shapes), "ranks": ranks}
 
 
+# ------------------------------------------------------------ phase 14
+
+def standalone_path(torch, dev) -> dict:
+    """The wire tier on the card: a StandaloneCluster (osd/standalone.py)
+    of SA_OSDS OSD daemons, three Paxos monitors and a cephx client over
+    AES-GCM sessions, every interaction a frame on the Messenger. Writes
+    256 x 4 MiB 16 at a time (traced), reads them back, overwrites 4 KiB
+    ranges, kills an OSD holding shards, reads degraded, waits for the
+    down mark and for recovery onto the new acting sets, reads
+    everything again against a host model and deep-scrubs every PG.
+    The kernels and the native library must be built before: a first
+    build on a daemon's thread would hold its pings past the heartbeat
+    grace."""
+    from ceph_tpu_torch.osd import standalone as S
+
+    t_phase = time.perf_counter()
+    # the CUDA context and the first allocation, before any daemon runs
+    torch.zeros(1, device=dev).sum().item()
+    frames = collections.Counter()
+    submit = {kind: getattr(S.RemoteStore, kind)
+              for kind in ("readv_submit", "readv_ranges_submit")}
+
+    def counted(kind):
+        def call(self, *args, **kw):
+            frames[kind] += 1
+            return submit[kind](self, *args, **kw)
+        return call
+    for kind in submit:
+        setattr(S.RemoteStore, kind, counted(kind))
+    c = S.StandaloneCluster(
+        n_osds=SA_OSDS, pg_num=SA_PGS, profile=f"plugin=tpu_rs k={K} m={M}",
+        chunk_size=OBJECT_SIZE // K, secret=os.urandom(32), cephx=SA_CEPHX,
+        op_window=SA_INFLIGHT, op_timeout=SA_OP_TIMEOUT, hb_grace=SA_GRACE,
+        **entry_device(dev))
+    try:
+        return standalone_run(torch, dev, c, frames, t_phase)
+    finally:
+        c.shutdown()
+        for kind, fn in submit.items():
+            setattr(S.RemoteStore, kind, fn)
+
+
+def suspects(c) -> dict:
+    """Each OSD daemon's suspected peers, where it has any."""
+    return {d.name: sorted(d.suspect) for d in c.osds.values()
+            if d.suspect}
+
+
+def standalone_run(torch, dev, c, frames, t_phase) -> dict:
+    """standalone_path's steps on the started cluster `c`; `frames`
+    counts the readv frames submitted."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    out: dict = {}
+    want = torch.device(dev.type, torch.cuda.current_device()) \
+        if dev.type == "cuda" else dev
+    devices = {str(d.device) for d in c.osds.values()} | {
+        str(m.device) for m in c.mons}
+    if c.device != want or devices != {str(want)}:
+        fail(f"phase 14: cluster on {c.device}, daemons on {devices}")
+    # a daemon whose heartbeat thread died never reports a failure, and
+    # the down mark after the kill below would never come
+    dead = [d.name for d in [*c.osds.values(), *c.mons]
+            if not d._hb.is_alive()]
+    if dead:
+        fail(f"phase 14: heartbeat threads dead at start: {dead}")
+    # every PG active before the load, as tools/rados_bench.py waits
+    # before its standalone writes: a primary still peering gathers PG
+    # metadata with a 1 s timeout, which the writes' frames outlast, and
+    # suspects the peers that answer late; writes skip suspects until
+    # one falls below min_size
+    c.wait_for_clean(timeout=60)
+    cl = c.client()
+    # then one committed epoch, which clears every suspicion left from
+    # boot; it turns the daemons' sampling profilers off as well, as
+    # `ceph config set global daemon_profile_hz 0` does (fifteen stack
+    # samplers at 10 Hz over every thread of the process)
+    cl.config_set("daemon_profile_hz", "0", timeout=60)
+    t_end = time.monotonic() + 60
+    while not all(d.osdmap is not None
+                  and d.osdmap.config_kv.get("daemon_profile_hz") == "0"
+                  for d in c.osds.values()):
+        if time.monotonic() > t_end:
+            fail("phase 14: daemon_profile_hz 0 not folded by every OSD")
+        time.sleep(0.05)
+    log(f"  started: every PG clean, epoch "
+        f"{min(d.osdmap.epoch for d in c.osds.values())}, suspects "
+        f"{suspects(c)}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 14)
+    names = [f"sa_{i:04d}" for i in range(SA_OBJECTS)]
+    rows = torch.randint(0, 256, (SA_OBJECTS, OBJECT_SIZE),
+                         dtype=torch.uint8, device=dev,
+                         generator=gen).cpu().numpy()
+
+    def same(label: str, got: dict, idx) -> None:
+        for i in idx:
+            g = got.get(names[i])
+            if g is None or len(g) != OBJECT_SIZE or not np.array_equal(
+                    np.frombuffer(g, np.uint8), rows[i]):
+                fail(f"phase 14: {label}: {names[i]} differs from the "
+                     f"bytes written")
+
+    def read_all(label: str) -> float:
+        t0 = time.perf_counter()
+        for i in range(0, SA_OBJECTS, SA_INFLIGHT):
+            idx = range(i, min(SA_OBJECTS, i + SA_INFLIGHT))
+            same(label, cl.read_many([names[j] for j in idx]), idx)
+        return time.perf_counter() - t0
+
+    gbytes = SA_OBJECTS * OBJECT_SIZE / 1e9
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(0, SA_OBJECTS, SA_INFLIGHT):
+            try:
+                cl.write({names[j]: rows[j].tobytes() for j in
+                          range(i, min(SA_OBJECTS, i + SA_INFLIGHT))})
+            except ConnectionError:
+                log(f"  write of objects {i}.. refused after "
+                    f"{time.perf_counter() - t0:.1f} s; suspects "
+                    f"{suspects(c)}")
+                raise
+        torch.cuda.synchronize()
+        t_write = time.perf_counter() - t0
+    busy = device_busy_s(prof)
+    backends = [be for d in c.osds.values() for be in d.backends.values()]
+    impls = {be.coder.impl for be in backends}
+    if not backends or impls != {"pallas"} \
+            or {str(be.device) for be in backends} != {str(want)}:
+        fail(f"phase 14: backends {len(backends)}, impls {impls}")
+    t_read = read_all("read_many")
+    out.update({"objects": SA_OBJECTS, "object_bytes": OBJECT_SIZE,
+                "write_s": t_write, "write_gbps": gbytes / t_write,
+                "write_device_busy_s": busy,
+                "write_idle_share": idle_share(busy, t_write),
+                "read_s": t_read, "read_gbps": gbytes / t_read})
+    log(f"  standalone: {SA_OSDS} OSDs, {SA_PGS} PGs, "
+        f"{'cephx over ' if SA_CEPHX else ''}AES-GCM sessions; "
+        f"{SA_OBJECTS} x {OBJECT_SIZE >> 20} MiB written "
+        f"{gbytes / t_write:.4f} GB/s (device busy {show(busy)} s, idle "
+        f"{show(idle_share(busy, t_write))}), read {gbytes / t_read:.4f} "
+        f"GB/s (host clock), exact; suspects after the write "
+        f"{suspects(c)}")
+
+    # -- 4 KiB overwrites: the parity delta over rmw_fetch frames -------
+    rng = np.random.default_rng(SEED + 14)
+    picks = rng.integers(0, SA_OBJECTS, SA_RANDOM)
+    offs = rng.integers(0, OBJECT_SIZE // RBD_BLOCK, SA_RANDOM) * RBD_BLOCK
+    data = torch.randint(0, 256, (SA_RANDOM, RBD_BLOCK), dtype=torch.uint8,
+                         device=dev, generator=gen).cpu().numpy()
+    rmw0 = sum(d.ec_perf.get("rmw_ops") for d in c.osds.values())
+    t0 = time.perf_counter()
+    for i in range(SA_RANDOM):
+        j, off = int(picks[i]), int(offs[i])
+        cl.write_at(names[j], off, data[i].tobytes())
+        rows[j, off:off + RBD_BLOCK] = data[i]
+    t_rand = time.perf_counter() - t0
+    rmw = sum(d.ec_perf.get("rmw_ops") for d in c.osds.values()) - rmw0
+    touched = sorted({int(j) for j in picks})
+    got = {}
+    for i in range(0, len(touched), SA_INFLIGHT):
+        got.update(cl.read_many([names[j] for j in
+                                 touched[i:i + SA_INFLIGHT]]))
+    same("read after write_at", got, touched)
+    out.update({"write_at_ops": SA_RANDOM, "write_at_s": t_rand,
+                "write_at_ops_s": SA_RANDOM / t_rand, "rmw_ops": rmw})
+    log(f"  {SA_RANDOM} random {RBD_BLOCK} B write_at at "
+        f"{SA_RANDOM / t_rand:.1f} ops/s (host clock), {rmw} on the delta "
+        f"path; reads exact")
+
+    # -- kill an OSD holding shards; degraded reads; down; recovery -----
+    osdmap = cl.osdmap
+
+    def acting(name: str) -> tuple:
+        ps = osdmap.object_to_pg(1, name)[1]
+        return ps, osdmap.pg_to_up_acting_osds(1, ps)[2]
+    victim = acting(names[0])[1][1]
+    held = [i for i in range(SA_OBJECTS) if victim in acting(names[i])[1]]
+    rec0 = sum(d.ec_perf.get("recovered_objects") for d in c.osds.values())
+    for d in c.osds.values():
+        d.config.set("osd_heartbeat_grace", SA_KILL_GRACE, level="override")
+    live = {o: d for o, d in c.osds.items() if o != victim}
+    # when every live daemon's map first shows the victim down, and when
+    # the last object was recovered, seen from a watcher thread (the
+    # degraded reads below block the main thread meanwhile)
+    seen = {"down": None, "recovered": 0, "last": None}
+    stop = threading.Event()
+
+    def watch() -> None:
+        while not stop.wait(0.02):
+            if seen["down"] is None and all(
+                    d.osdmap is not None and not d.osdmap.osd_up[victim]
+                    for d in live.values()):
+                seen["down"] = time.perf_counter()
+            n = sum(d.ec_perf.get("recovered_objects")
+                    for d in live.values()) - rec0
+            if n > seen["recovered"]:
+                seen["recovered"], seen["last"] = n, time.perf_counter()
+    watcher = threading.Thread(target=watch, daemon=True)
+    t_kill = time.perf_counter()
+    c.kill_osd(victim)
+    watcher.start()
+    # degraded reads of objects whose primary lives: the primary decodes
+    # them from the surviving shards (a read whose primary died waits
+    # for the down mark instead, which kill -> down below measures)
+    deg = [i for i in held if acting(names[i])[1][0] != victim][
+        :SA_DEGRADED]
+    t0 = time.perf_counter()
+    same("degraded read", cl.read_many([names[i] for i in deg]), deg)
+    t_deg = time.perf_counter() - t0
+    # the down mark waits for two reporters and a Paxos commit among 12
+    # in-process daemons on one host: a generous budget
+    c.wait_for_down(victim, timeout=240)
+    c.wait_for_clean(timeout=120)
+    stop.set()
+    watcher.join(5)
+    recovered = sum(d.ec_perf.get("recovered_objects")
+                    for d in live.values()) - rec0
+    t_down = seen["down"] or time.perf_counter()
+    t_clean = max(seen["last"] or t_down, t_down)
+    wire = sum(d.ec_perf.get("recover_wire_bytes") for d in live.values())
+    if recovered == 0 or sum(frames.values()) == 0:
+        fail(f"phase 14: recovered {recovered} objects from "
+             f"{dict(frames)} readv frames")
+    out.update({"victim": victim, "objects_on_victim": len(held),
+                "degraded_reads": len(deg), "degraded_read_s": t_deg,
+                "kill_to_down_s": t_down - t_kill,
+                "down_to_clean_s": t_clean - t_down,
+                "kill_to_clean_s": t_clean - t_kill,
+                "recovered_objects": recovered,
+                "recovered_objects_s": recovered / max(t_clean - t_down,
+                                                       1e-9),
+                "recover_wire_bytes": wire,
+                "readv_frames": dict(frames)})
+    log(f"  osd.{victim} ({len(held)} objects with a shard on it) killed: "
+        f"{len(deg)} degraded reads exact in {t_deg:.3f} s; down after "
+        f"{t_down - t_kill:.3f} s; {recovered} objects recovered, "
+        f"{out['recovered_objects_s']:.1f} objects/s, the last "
+        f"{t_clean - t_down:.3f} s after the down mark, from "
+        f"{dict(frames)} readv frames, "
+        f"recover_wire_bytes {wire}")
+
+    # -- everything again, then a deep scrub of every PG ----------------
+    t_reread = read_all("read after recovery")
+    t0 = time.perf_counter()
+    for ps in range(SA_PGS):
+        rep = cl.deep_scrub(ps)
+        if rep["inconsistent"]:
+            fail(f"phase 14: deep scrub of PG {ps}: {rep['inconsistent']}")
+    t_scrub = time.perf_counter() - t0
+    msgrs = [d.msgr for d in c.osds.values()] + [m.msgr for m in c.mons] \
+        + [x.msgr for x in c.clients]
+    wire_counts = {key: sum(m.perf.get(key) for m in msgrs)
+                   for key in ("frames_tx", "bytes_tx", "frames_rx",
+                               "bytes_rx")}
+    out.update({"reread_s": t_reread, "deep_scrub_s": t_scrub,
+                "messenger": wire_counts,
+                "phase_s": time.perf_counter() - t_phase})
+    log(f"  every byte read again exact in {t_reread:.3f} s; deep scrub "
+        f"of {SA_PGS} PGs clean in {t_scrub:.3f} s; messengers "
+        f"{json.dumps(wire_counts)}")
+    log(f"  phase 14 wall time {out['phase_s']:.1f} s; {card_line()}")
+    return out
+
+
+def standalone_phase(torch, dev) -> tuple:
+    """Phase 14 with its launch counts set to 0 before and read after;
+    fails unless gf_apply launched an encode, the 4 KiB delta and a
+    decode, and the CRC32C kernel launched."""
+    from ceph_tpu_torch.ops import gf_kernel as G
+    gf_set(G)
+    csum_set()
+    sa = standalone_path(torch, dev)
+    launches, shapes = gf_counts(G)
+    log(f"  gf_apply launches in phase 14: {launches}, by (k,m,L,vec): "
+        f"{json.dumps(by_shape(shapes))}")
+    encodes = sum(n for (k, m, _L, _v), n in shapes.items()
+                  if k == K and m == M)
+    deltas = sum(n for (k, m, L, _v), n in shapes.items()
+                 if k < K and m == M and L == RBD_BLOCK)
+    if encodes == 0 or deltas == 0 or decode_launches(shapes) == 0:
+        fail(f"phase 14: gf_apply launches {launches}: encodes {encodes}, "
+             f"of the 4 KiB delta shape {deltas}, decodes "
+             f"{decode_launches(shapes)}")
+    crc = crc_launches("phase 14")
+    sa.update({"gf_apply_launches": launches,
+               "gf_apply_encode_launches": encodes,
+               "gf_apply_delta_4k_launches": deltas,
+               "gf_apply_decode_launches": decode_launches(shapes),
+               "gf_apply_by_shape": by_shape(shapes),
+               "crc32c_launches": crc})
+    return sa, launches, shapes, crc
+
+
 def build_all() -> Path:
     """Phase 1: build every kernel source, one nvcc each, and the native
     host library (g++, always anew: a library copied in from another
@@ -3513,10 +3856,24 @@ def main() -> None:
         log(card_line())
         log(json.dumps({"mesh": mesh}))
         return
+    if sys.argv[1:] == ["--standalone"]:
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ceph_tpu_torch import native
+        from ceph_tpu_torch.csum import kernels as C
+        with ThreadPoolExecutor(3) as pool:
+            for job in [pool.submit(G.build), pool.submit(C.build),
+                        pool.submit(native.build, True)]:
+                job.result()
+        log("phase 14: the wire tier's daemons over the card's EC backend")
+        standalone = standalone_phase(torch, dev)[0]
+        log(card_line())
+        log(json.dumps({"standalone": standalone}))
+        return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: none, --gf-times, "
              f"--crc-times, --score-times [PARENT_PLACEMENT_CU], "
-             f"--client or --mesh")
+             f"--client, --mesh or --standalone")
     native_lib = build_all()
 
     log("phase 2: kernels against their plain versions")
@@ -3617,24 +3974,31 @@ def main() -> None:
     launches13 = mesh["launches"]
     log("mesh " + json.dumps({key: mesh[key] for key in
                               ("world", "seconds", "launches", "by_shape")}))
+
+    log("phase 14: the wire tier's daemons over the card's EC backend")
+    standalone, launches14, shapes14, crc14 = standalone_phase(torch, dev)
+    log("standalone " + json.dumps(standalone))
     kernels = [{
         "name": "gf_apply",
         "route": "cuda",
         "source": "ceph_tpu_torch/ops/csrc/gf_apply.cu",
         "replaces": "ceph_tpu/ops/pallas_gf.py:103",
         "launches": launches + launches5 + launches7 + launches8
-        + launches9 + launches11 + launches12 + launches13,
+        + launches9 + launches11 + launches12 + launches13
+        + launches14,
         "launches_by_phase": {"3": launches, "5": launches5,
                               "7": launches7, "8": launches8,
                               "9": launches9, "11": launches11,
-                              "12": launches12, "13": launches13},
+                              "12": launches12, "13": launches13,
+                              "14": launches14},
         "launches_by_shape": {"3": by_shape(shapes3),
                               "5": backend["gf_apply_by_shape"],
                               "7": by_shape(shapes7),
                               "8": by_shape(shapes8),
                               "11": by_shape(shapes11),
                               "12": by_shape(shapes12),
-                              "13": mesh["by_shape"]},
+                              "13": mesh["by_shape"],
+                              "14": by_shape(shapes14)},
         "max_abs_err": gf_check["max_abs_err"],
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -3650,7 +4014,8 @@ def main() -> None:
     }]
     csum = times["csum"]
     crc_phases = {"3": crc3, "5": crc5, "7": crc7, "8": crc8,
-                  "9": by9["crc32c"], "11": crc11, "12": crc12}
+                  "9": by9["crc32c"], "11": crc11, "12": crc12,
+                  "14": crc14}
     for name, replaces, main_row, by_phase, extra in (
             ("crc32c", "ceph_tpu/csum/kernels.py:113", "crc32c_256x512KiB",
              crc_phases, tuple(k for k in csum if k.startswith("crc32c")

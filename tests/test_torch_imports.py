@@ -46,7 +46,11 @@ def test_port_has_the_slice_modules():
                  "utils.throttle", "client", "client.objecter",
                  "client.rados", "client.rbd", "fs", "fs.client", "rgw",
                  "rgw.gateway", "rgw.auth", "parallel", "parallel.mesh",
-                 "parallel.distributed"):
+                 "parallel.distributed", "utils.admin_socket", "auth",
+                 "auth.aead", "auth.cephx", "mgr.reports", "mgr.health",
+                 "mgr.telemetry", "mgr.profiles", "mgr.netobs",
+                 "osd.repairpolicy", "osd.pg_export", "msgr",
+                 "msgr.messenger", "osd.standalone"):
         assert f"ceph_tpu_torch.{name}" in mods, name
 
 

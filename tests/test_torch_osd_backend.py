@@ -81,6 +81,14 @@ def _corrupt(be, slot, name, off=5):
         J.Transaction().write(J.shard_cid(PG, slot), name, off, b"\xff\x00"))
 
 
+@pytest.fixture(autouse=True)
+def _port_device_programs(monkeypatch):
+    # these tests hold the port's device programs (their plain versions
+    # on the CPU) to the twin: keep the port's CPU backends out of the
+    # native host mode; the host mode has its own tests below
+    monkeypatch.setattr(T, "_host_crc_available", lambda device=None: False)
+
+
 @pytest.fixture(params=GEOMS, ids=GEOM_IDS)
 def geom(request):
     return request.param
@@ -568,14 +576,19 @@ def test_readv_ranges_host_matches_twin():
 
 
 def test_range_staging_refuses_remote_stores():
-    # readv frames belong to the wire tier, which is not ported
+    # a remote store whose readv_ranges reply is short is refused, as in
+    # the twin: the bytes would not fill the planned rows
     tb = T.ECBackend("plugin=clay k=4 m=2 d=5", PG, list(range(6)),
                      T.ShardSet(), chunk_size=1024, device="cpu")
     tb.write_objects(_objects(2, 9000, seed=24))
     tb.cluster.stores.pop(0)
     st = tb.cluster.osd(tb.acting[1])
-    st.readv_ranges_submit = lambda *a: None
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+
+    class Short:
+        def result(self):
+            return b"\x00" * 7, None, []
+    st.readv_ranges_submit = lambda *a: Short()
+    with pytest.raises(ValueError, match="readv_ranges: got 7 bytes"):
         tb.recover_shards([0], replacement_osds={0: 100})
 
 

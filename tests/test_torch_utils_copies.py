@@ -35,7 +35,11 @@ COPIES = ["utils/perf_counters.py", "utils/profiler.py",
           "osd/tinstore.py", "utils/throttle.py", "client/__init__.py",
           "client/objecter.py", "client/rados.py", "client/rbd.py",
           "fs/__init__.py", "fs/client.py", "rgw/__init__.py",
-          "rgw/gateway.py", "rgw/auth.py"]
+          "rgw/gateway.py", "rgw/auth.py", "utils/admin_socket.py",
+          "auth/__init__.py", "auth/aead.py", "auth/cephx.py",
+          "mgr/reports.py", "mgr/health.py", "mgr/telemetry.py",
+          "mgr/profiles.py", "mgr/netobs.py", "osd/repairpolicy.py",
+          "osd/pg_export.py", "msgr/__init__.py", "msgr/messenger.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
