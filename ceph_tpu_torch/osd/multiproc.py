@@ -1,0 +1,549 @@
+"""Multi-process OSD scale-out — real OS processes behind the wire.
+
+The GIL is the wall the r13 reactor/shard work cannot move on its
+own: one Python process serializes every byte of framing, sealing and
+dispatch onto one core no matter how many reactors or op shards it
+runs. This module puts each OSD daemon in its OWN process (the
+reference's deployment shape — one ceph-osd process per device), so a
+multi-core host really runs N OSDs on N cores. Monitors and clients
+stay in the orchestrating process; everything between daemons already
+travels over real sockets, so nothing in the data plane changes —
+only where the processes live.
+
+Twin of ceph_tpu/osd/multiproc.py. Each child runs its daemon on the
+cluster's device (`StandaloneCluster.device`, shipped in the config
+line): every encode, parity delta, decode and CRC32C of its PGs is a
+gf_apply or CRC launch in the child. The port's differences, each a
+diagnostic the twin (which has no hand kernels) does not need:
+
+* the child warms its device before it reports ready (the CUDA context,
+  a first allocation, the built gf_apply, csum and native libraries;
+  `utils/nvcc.build`'s per-library lock serialises a build still
+  needed), where the twin enables its persistent jit cache: a first
+  context or library load on a daemon thread would hold its pings past
+  the heartbeat grace;
+* the ready line carries the child's device, and `wait_ready` raises
+  when it is not the cluster's: a child never serves quietly on another
+  device;
+* each child's stderr goes to `<admin_dir>/<name>.stderr` (appended
+  across revives), whose tail `wait_ready`'s TimeoutError carries;
+* the `launches` control line answers the child's kernel launch counts
+  (gf_apply's by shape, the checksum kernels' by name and shape), which
+  the parent's counters never see.
+
+Mechanics:
+
+* the parent spawns `python -m ceph_tpu_torch.osd.multiproc` per OSD and
+  ships ONE json config line over stdin (secrets ride the pipe, never
+  argv); the child builds a real OSDDaemon against a config shim that
+  answers the same surface StandaloneCluster does;
+* the child reports its messenger address on stdout, then serves
+  control lines (peer wiring, partitions, injection knobs, boot
+  announcements) — the side channel plays the role the test harness's
+  direct method calls play in-process;
+* `kill` is a REAL SIGKILL: no cooperative shutdown, the process
+  vanishes mid-syscall exactly like a crashed ceph-osd. Revive spawns
+  a fresh process over the same store directory (TinStore remounts
+  its WAL; a MemStore child loses RAM state like real RAM does);
+* children share the parent's kernel build cache
+  (ceph_tpu_torch/_build/, utils/nvcc.py) so N cold processes load one
+  build of each kernel, not N;
+* the parent observes children through their admin sockets (bound in
+  the cluster's shared admin_dir): `pg clean` drives wait_for_clean,
+  `perf dump` feeds bench attribution;
+* control-parity lines (r15): `rotate` pushes rotated service secrets
+  into the child's in-RAM verifier (rotate_service_secrets now works
+  against --osd-procs — secrets cross stdin, never argv), and `fsck`
+  runs a quiesced store audit inside the child and answers on stdout
+  — the two RAM-reaching helpers the r13 harness documented as
+  in-process-only.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+
+# -- parent side --------------------------------------------------------------
+
+class _ProcStop:
+    """threading.Event's is_set() surface for a child process: 'set'
+    means the process is gone (killed or crashed)."""
+
+    def __init__(self, proc: subprocess.Popen):
+        self._proc = proc
+        self._forced = False
+
+    def is_set(self) -> bool:
+        return self._forced or self._proc.poll() is not None
+
+    def set(self) -> None:
+        self._forced = True
+
+
+class _HandleMsgr:
+    """The slice of a child's Messenger the cluster harness drives,
+    forwarded as control lines: address book updates, partition
+    blocks, injection knobs."""
+
+    def __init__(self, handle: "OSDProcHandle"):
+        self._h = handle
+        self.addr: tuple | None = None   # set at ready
+        self.name = handle.name
+
+    def add_peer(self, peer: str, addr) -> None:
+        self._h._control({"cmd": "add_peer", "peer": peer,
+                          "addr": list(addr)})
+
+    def set_blocked(self, peers) -> None:
+        self._h._control({"cmd": "set_blocked",
+                          "peers": sorted(peers)})
+
+    def seed_injection(self, seed: int) -> None:
+        self._h._control({"cmd": "seed_injection", "seed": int(seed)})
+
+    def set_inject_socket_failures(self, every: int) -> None:
+        self._h._control({"cmd": "inject_socket_failures",
+                          "every": int(every)})
+
+    def set_inject_delay(self, every: int, max_ms: float) -> None:
+        self._h._control({"cmd": "inject_delay", "every": int(every),
+                          "max_ms": float(max_ms)})
+
+
+class OSDProcHandle:
+    """Parent-side proxy for one OSD child process. Mimics the
+    OSDDaemon attributes the StandaloneCluster harness touches
+    (name, _stop, msgr address book, kill/revive); everything else
+    goes over the wire or the child's admin socket."""
+
+    def __init__(self, cluster, osd_id: int):
+        self.c = cluster
+        self.osd_id = osd_id
+        self.name = f"osd.{osd_id}"
+        self.msgr = _HandleMsgr(self)
+        self._ctl_lock = threading.Lock()
+        self._spawn()
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def _config(self) -> dict:
+        c = self.c
+        cfg = {
+            "osd_id": self.osd_id,
+            "secret": _b64(c.secret),
+            "compress": c.compress,
+            "profile": c.profile,
+            "pg_num": c.pg_num,
+            "pool_size": c.pool_size,
+            "pool_min_size": c.pool_min_size,
+            "is_erasure": c.is_erasure,
+            "chunk_size": c.chunk_size,
+            "op_timeout": c.op_timeout,
+            "hb_interval": c.hb_interval,
+            "hb_grace": c.hb_grace,
+            "admin_dir": c.admin_dir,
+            "store": c.store_kind,
+            "store_dir": c.store_dir,
+            "op_shards": c.op_shards,
+            "msgr_workers": c.msgr_workers,
+            "msgr_uds": c.msgr_uds,
+            "mon_names": [m.name for m in c.mons] if c.mons else
+            [f"mon.{r}" for r in range(3)],
+            "osd_ids": list(range(c.n_osds)),
+            "device": str(c.device),
+            "verbose": bool(c.verbose),
+        }
+        if c.key_server is not None:
+            cfg["rotating_osd"] = c.key_server.export_rotating("osd")
+            cfg["osd_secret"] = _b64(c.osd_secrets[self.osd_id])
+        return cfg
+
+    @property
+    def stderr_path(self) -> str:
+        return os.path.join(self.c.admin_dir, f"{self.name}.stderr")
+
+    def _spawn(self) -> None:
+        err = None
+        if not self.c.verbose:
+            err = open(self.stderr_path, "ab")
+        try:
+            self._proc = subprocess.Popen(
+                [sys.executable, "-m", "ceph_tpu_torch.osd.multiproc"],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+                cwd=os.path.dirname(os.path.dirname(
+                    os.path.dirname(os.path.abspath(__file__)))),
+                text=True)
+        finally:
+            if err is not None:
+                err.close()      # the child holds its own descriptor
+        self._stop = _ProcStop(self._proc)
+        self._proc.stdin.write(json.dumps(self._config()) + "\n")
+        self._proc.stdin.flush()
+
+    def stderr_tail(self, n: int = 2000) -> str:
+        """The last `n` bytes the child wrote to its stderr file."""
+        try:
+            with open(self.stderr_path, "rb") as f:
+                f.seek(0, os.SEEK_END)
+                f.seek(max(0, f.tell() - n))
+                return f.read().decode(errors="replace")
+        except OSError:
+            return ""
+
+    def wait_ready(self, timeout: float = 120.0) -> None:
+        """Block until the child reports its messenger address and its
+        device (torch import, device warm-up and store mount happen
+        before it); raises when the child's device is not the
+        cluster's."""
+        t_end = time.monotonic() + timeout
+        line = None
+
+        def _read():
+            nonlocal line
+            line = self._proc.stdout.readline()
+        t = threading.Thread(target=_read, daemon=True)
+        t.start()
+        t.join(max(0.0, t_end - time.monotonic()))
+        if not line:
+            raise TimeoutError(f"{self.name}: child never reported "
+                               f"ready (rc={self._proc.poll()}); its "
+                               f"stderr ends:\n{self.stderr_tail()}")
+        msg = json.loads(line)
+        self.device = msg["device"]
+        if self.device != str(self.c.device):
+            self.kill()
+            raise RuntimeError(f"{self.name}: child runs on {self.device}, "
+                               f"the cluster on {self.c.device}")
+        self.msgr.addr = tuple(msg["addr"])
+
+    def _control(self, obj: dict) -> None:
+        if self._stop.is_set():
+            return
+        try:
+            with self._ctl_lock:
+                self._proc.stdin.write(json.dumps(obj) + "\n")
+                self._proc.stdin.flush()
+        except (BrokenPipeError, OSError, ValueError):
+            pass                      # child died; harness will see it
+
+    def boot(self) -> None:
+        """Tell the child to announce itself (MOSDBoot to the mons) —
+        the revive_osd step the parent cannot send on the child's
+        behalf."""
+        self._control({"cmd": "boot"})
+
+    # -- request/response control lines (r15 harness parity) ------------------
+
+    def _request(self, obj: dict, timeout: float = 30.0) -> dict:
+        """A control line that ANSWERS: ship {..., req: n} down stdin,
+        read stdout lines until {event, req: n} comes back. Serialized
+        under the control lock (the only other stdout traffic is the
+        one-shot ready line wait_ready consumed)."""
+        if self._stop.is_set():
+            raise ConnectionError(f"{self.name}: child is dead")
+        with self._ctl_lock:
+            self._req_seq = getattr(self, "_req_seq", 0) + 1
+            req = self._req_seq
+            try:
+                self._proc.stdin.write(
+                    json.dumps({**obj, "req": req}) + "\n")
+                self._proc.stdin.flush()
+            except (BrokenPipeError, OSError, ValueError):
+                raise ConnectionError(f"{self.name}: control pipe "
+                                      f"closed")
+            t_end = time.monotonic() + timeout
+            while time.monotonic() < t_end:
+                line = [None]
+
+                def _read():
+                    line[0] = self._proc.stdout.readline()
+                t = threading.Thread(target=_read, daemon=True)
+                t.start()
+                t.join(max(0.0, t_end - time.monotonic()))
+                if not line[0]:
+                    break
+                try:
+                    msg = json.loads(line[0])
+                except ValueError:
+                    continue
+                if msg.get("req") == req:
+                    return msg
+            raise TimeoutError(f"{self.name}: no reply to "
+                               f"{obj.get('cmd')!r} control line")
+
+    def push_rotating(self, service: str, rotating: list) -> None:
+        """Key-rotation push (the in-process verifier.refresh parity
+        path): rotated service secrets cross the child's stdin pipe —
+        never argv — and refresh its in-RAM ServiceVerifier, so
+        rotation composes with --osd-procs thrash cells."""
+        got = self._request({"cmd": "rotate", "service": service,
+                            "rotating": rotating})
+        if not got.get("ok"):
+            raise RuntimeError(f"{self.name}: rotation push failed: "
+                               f"{got.get('error')}")
+
+    def store_fsck(self, timeout: float = 60.0) -> dict:
+        """Online store audit (the Thrasher store-fsck parity path):
+        the child quiesces its store plane (store lock held) and runs
+        the offline TinStore fsck over its own directory; MemStore
+        children answer a trivial in-RAM audit. Returns the fsck
+        report dict."""
+        got = self._request({"cmd": "fsck"}, timeout=timeout)
+        if not got.get("ok"):
+            raise RuntimeError(f"{self.name}: store fsck failed: "
+                               f"{got.get('error')}")
+        return got["report"]
+
+    def launches(self, timeout: float = 30.0) -> dict:
+        """The child's kernel launch counts since it started: gf_apply's
+        total and by "k,m,L,vec", and the checksum kernels' by name
+        ("crc32c", "xxh32", "xxh64") and the CRC kernel's by shape."""
+        got = self._request({"cmd": "launches"}, timeout=timeout)
+        if not got.get("ok"):
+            raise RuntimeError(f"{self.name}: launches failed: "
+                               f"{got.get('error')}")
+        return got["launches"]
+
+    def asok(self, cmd: str, timeout: float = 10.0):
+        """Query the child's admin socket (shared admin_dir)."""
+        from ..utils.admin_socket import admin_command
+        return admin_command(self.c.asok_path(self.name), cmd,
+                             timeout=timeout)
+
+    def kill(self) -> None:
+        """REAL SIGKILL — the process vanishes mid-whatever."""
+        self._stop.set()
+        try:
+            self._proc.kill()
+            self._proc.wait(timeout=10)
+        except (OSError, subprocess.TimeoutExpired):
+            pass
+
+    def revive(self) -> "OSDProcHandle":
+        """Fresh process, same store directory (the TinStore WAL
+        remount path runs in the child at boot)."""
+        fresh = OSDProcHandle.__new__(OSDProcHandle)
+        fresh.c = self.c
+        fresh.osd_id = self.osd_id
+        fresh.name = self.name
+        fresh.msgr = _HandleMsgr(fresh)
+        fresh._ctl_lock = threading.Lock()
+        fresh._spawn()
+        fresh.wait_ready()
+        return fresh
+
+
+def _b64(b: bytes | None) -> str | None:
+    return None if b is None else base64.b64encode(b).decode()
+
+
+def _unb64(s: str | None) -> bytes | None:
+    return None if s is None else base64.b64decode(s)
+
+
+# -- child side ---------------------------------------------------------------
+
+class _ChildKeyServer:
+    """The one KeyServer method an OSD daemon consumes
+    (export_rotating) served from the exported blob the parent
+    shipped. Rotation pushes don't cross the pipe — documented
+    in-process-only."""
+
+    def __init__(self, rotating_osd):
+        self._rot = {"osd": [tuple(x) for x in rotating_osd]}
+
+    def export_rotating(self, service: str):
+        return list(self._rot[service])
+
+
+class _ChildCluster:
+    """The StandaloneCluster surface OSDDaemon actually touches,
+    rebuilt from the parent's config line. Static where the parent's
+    is dynamic (mon_names doesn't track mon deaths — frames to a dead
+    monitor queue in the lossless session, which is exactly what a
+    real daemon does)."""
+
+    def __init__(self, cfg: dict):
+        self.cfg = cfg
+        self.secret = _unb64(cfg.get("secret"))
+        self.compress = cfg.get("compress")
+        self.profile = cfg["profile"]
+        self.pg_num = cfg["pg_num"]
+        self.pool_size = cfg["pool_size"]
+        self.pool_min_size = cfg["pool_min_size"]
+        self.is_erasure = cfg["is_erasure"]
+        self.chunk_size = cfg["chunk_size"]
+        self.op_timeout = cfg["op_timeout"]
+        self.hb_interval = cfg["hb_interval"]
+        self.hb_grace = cfg["hb_grace"]
+        self.admin_dir = cfg["admin_dir"]
+        self.op_shards = cfg.get("op_shards", 1)
+        self.msgr_workers = cfg.get("msgr_workers", 1)
+        self.msgr_uds = cfg.get("msgr_uds", True)
+        self.verbose = cfg.get("verbose", False)
+        self._mon_names = list(cfg["mon_names"])
+        self._osd_ids = list(cfg["osd_ids"])
+        self.key_server = None
+        self.osd_secrets = {}
+        if cfg.get("rotating_osd") is not None:
+            self.key_server = _ChildKeyServer(cfg["rotating_osd"])
+            self.osd_secrets = {
+                cfg["osd_id"]: _unb64(cfg["osd_secret"])}
+
+    def log(self, msg: str) -> None:
+        from ..utils.log import dout
+        dout("osd", 4, f"osd-proc: {msg}")
+        if self.verbose:
+            print(f"osd-proc: {msg}", file=sys.stderr, flush=True)
+
+    def asok_path(self, name: str) -> str:
+        return os.path.join(self.admin_dir, f"{name}.asok")
+
+    def mon_names(self) -> list[str]:
+        return list(self._mon_names)
+
+    def osd_ids(self) -> list[int]:
+        return list(self._osd_ids)
+
+    def make_store(self, osd_id: int):
+        if self.cfg["store"] == "tin":
+            from .tinstore import TinStore
+            return TinStore(os.path.join(self.cfg["store_dir"],
+                                         f"osd.{osd_id}"),
+                            verify_reads=False,
+                            cache_bytes=64 << 10)
+        from .memstore import MemStore
+        return MemStore()
+
+
+def _warm(device) -> None:
+    """Touch everything a daemon thread would otherwise meet first: the
+    CUDA context and a first allocation, and the gf_apply and csum
+    libraries (built by the parent or a sibling; nvcc.build's lock
+    serialises a build still needed); the native host library on any
+    device, where it exists (AES-GCM and TinDB's CRC fall back without
+    it, as in the twin)."""
+    import torch
+
+    from .. import native
+    if device.type == "cuda":
+        from ..csum import kernels as C
+        from ..ops import gf_kernel as G
+        torch.zeros(1, device=device).sum().item()
+        G._load()
+        C._load()
+    try:
+        native.lib()
+    except native.NativeUnavailable:
+        pass
+
+
+def _launch_counts() -> dict:
+    from ..csum import kernels as C
+    from ..ops import gf_kernel as G
+    f = G.apply_matrix_gf
+    return {"gf_apply": {"launches": int(f.launches),
+                         "by_shape": {",".join(map(str, key)): int(n)
+                                      for key, n in f.by_shape.items()}},
+            "csum": {"launches": dict(C.launches),
+                     "shapes": dict(C.shapes)}}
+
+
+def child_main() -> int:
+    line = sys.stdin.readline()
+    if not line:
+        return 1
+    cfg = json.loads(line)
+    from ..ec.interface import resolve_device
+    from .standalone import MOSDBoot, OSDDaemon
+    device = resolve_device(cfg["device"])
+    _warm(device)
+    shim = _ChildCluster(cfg)
+    daemon = OSDDaemon(cfg["osd_id"], shim, device=device)
+    print(json.dumps({"event": "ready", "addr": list(daemon.msgr.addr),
+                      "device": str(daemon.device)}), flush=True)
+
+    def _boot() -> None:
+        for mon in shim.mon_names():
+            try:
+                daemon.msgr.send(mon, MOSDBoot(daemon.osd_id))
+            except (KeyError, OSError, ConnectionError):
+                pass
+    def _answer(req, ok, **fields) -> None:
+        print(json.dumps({"req": req, "ok": ok, **fields}),
+              flush=True)
+
+    def _fsck() -> dict:
+        """Online audit: quiesce the store plane (store lock), then
+        run the offline fsck over this child's own directory. A
+        concurrent local write can at worst leave a torn WAL tail,
+        which TinDB.fsck already classifies as recoverable — the
+        caller judges `errors`/`bad_objects`, not torn_tail."""
+        store = daemon.store
+        path = getattr(store, "path", None)
+        if path is None:
+            # MemStore: nothing on disk — answer the in-RAM shape
+            return {"format": "mem", "errors": [], "bad_objects": [],
+                    "extent_errors": [],
+                    "objects": sum(len(c) for c in
+                                   store.collections.values())
+                    if hasattr(store, "collections") else 0}
+        from .tinstore import TinStore
+        with daemon._store_lock:
+            return TinStore.fsck(path)
+
+    for raw in sys.stdin:        # EOF = parent gone: die with it
+        try:
+            ctl = json.loads(raw)
+        except ValueError:
+            continue
+        cmd = ctl.get("cmd")
+        req = ctl.get("req")
+        try:
+            if cmd == "add_peer":
+                daemon.msgr.add_peer(ctl["peer"], tuple(ctl["addr"]))
+            elif cmd == "boot":
+                _boot()
+            elif cmd == "set_blocked":
+                daemon.msgr.set_blocked(set(ctl["peers"]))
+            elif cmd == "seed_injection":
+                daemon.msgr.seed_injection(ctl["seed"])
+            elif cmd == "inject_socket_failures":
+                daemon.msgr.set_inject_socket_failures(ctl["every"])
+            elif cmd == "inject_delay":
+                daemon.msgr.set_inject_delay(ctl["every"],
+                                             ctl["max_ms"])
+            elif cmd == "rotate":
+                # key-rotation push (r15 parity): refresh the live
+                # verifier AND the shim KeyServer, so the daemon's
+                # own _start/revive paths see the rotated export too
+                rot = [tuple(x) for x in ctl["rotating"]]
+                if shim.key_server is not None:
+                    shim.key_server._rot[ctl["service"]] = list(rot)
+                if daemon.verifier is not None:
+                    daemon.verifier.refresh(rot)
+                if req is not None:
+                    _answer(req, True)
+            elif cmd == "fsck":
+                _answer(req, True, report=_fsck())
+            elif cmd == "launches":
+                _answer(req, True, launches=_launch_counts())
+            elif cmd == "shutdown":
+                break
+        except Exception as e:   # noqa: BLE001 — a bad control line
+            shim.log(f"control {cmd!r} failed: {e!r}")   # is not fatal
+            if req is not None:
+                _answer(req, False, error=f"{type(e).__name__}: {e}")
+    daemon.kill()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(child_main())

@@ -67,7 +67,8 @@ piece of device state is made there: the coder the pool is sized from,
 every OSDMap (built or decoded) and its placement, the PG backends
 (every encode, RMW parity delta, degraded-read decode, recovery decode
 and CRC32C on that device), and the source side of a ranged shard pull.
-`osd_procs=True` (one OS process an OSD) is not ported yet.
+With `osd_procs=True` each OSD daemon is its own OS process
+(osd/multiproc.py) on the cluster's device.
 """
 
 from __future__ import annotations
@@ -2875,6 +2876,8 @@ class OSDDaemon:
                 except (ValueError, ConnectionError, KeyError) as e:
                     self.c.log(f"{self.name}: pg 1.{ps} recovery "
                                f"retry deferred: {e}")
+            if ps not in self._recovering:
+                self._catch_up_lagging(ps, be, new_plans)
         if be.acting != acting:
             # a changed slot whose old OSD is still up is a MOVE
             # (CRUSH re-slotted a live member: copy the shard
@@ -3050,6 +3053,56 @@ class OSDDaemon:
         except (ValueError, ConnectionError, KeyError) as e:
             self.c.log(f"{self.name}: pg 1.{ps} revive catch-up "
                        f"deferred: {e}")
+
+    def _lagging_slots(self, be) -> list[int]:
+        """Acting slots whose OSD is up and unsuspected but whose
+        applied cursor is behind the PG log head: they missed writes
+        acked while their OSD was suspected (writes skip suspects)."""
+        n_osds = len(self.osdmap.osd_up)
+        return [s for s, o in enumerate(be.acting)
+                if _valid_osd(o, n_osds) and self.osdmap.osd_up[o]
+                and o not in self.suspect
+                and be.shard_applied[s] < be.pg_log.head]
+
+    def _catch_up_lagging(self, ps: int, be, new_plans: list) -> None:
+        """Replay the objects a lagging slot missed through the names=
+        delta recovery, as a revive's cursor re-check does. Without it
+        the slot stays stale for good: a cursor with a gap never
+        advances on later writes, so reads and scrubs route around the
+        shard while the PG reports clean. Caller holds self._lock and
+        the PG lock."""
+        slots = self._lagging_slots(be)
+        if not slots:
+            return
+        names: set[str] | None = set()
+        for s in slots:
+            missing = be.pg_log.missing_since(be.shard_applied[s])
+            if missing is None:
+                names = None            # log trimmed: full rebuild
+                break
+            names.update(missing)
+        todo = sorted(names) if names is not None else None
+        n_osds = len(self.osdmap.osd_up)
+        exclude = {s for s, o in enumerate(be.acting)
+                   if s not in slots
+                   and (not _valid_osd(o, n_osds) or o in self.suspect
+                        or not self.osdmap.osd_up[o])}
+        try:
+            if hasattr(be, "plan_recovery"):
+                plan = be.plan_recovery(
+                    slots, names=todo, helper_exclude=exclude,
+                    helper_costs=self._helper_costs(be))
+                self._recovering[ps] = None      # round pending
+                new_plans.append((ps, plan, set()))
+            else:
+                be.recover_shards(slots, names=todo)
+                self.perf.inc("recovery_rounds")
+            self.c.log(f"{self.name}: pg 1.{ps} catch-up of lagging "
+                       f"slots {slots}: "
+                       f"{len(todo) if todo is not None else 'all'} "
+                       f"object(s)")
+        except (ValueError, ConnectionError, KeyError) as e:
+            self.c.log(f"{self.name}: pg 1.{ps} catch-up deferred: {e}")
 
     def _request_up_thru(self, want: int) -> None:
         """Ask every monitor to record our up_thru through `want` (the
@@ -3509,7 +3562,8 @@ class OSDDaemon:
                     out[f"1.{ps}"] = (bool(acting)
                                       and acting[0] == self.osd_id
                                       and be.acting == acting
-                                      and ps not in self._recovering)
+                                      and ps not in self._recovering
+                                      and not self._lagging_slots(be))
                 return out
         raise ValueError(f"unknown admin command {cmd!r}; "
                          f"known: {list(self._ADMIN_CMDS)}")
@@ -6566,6 +6620,13 @@ class Client:
         plane discloses it instead of charging it to write latency."""
         import random as _random
         t0 = time.monotonic()
+        self._request_map()
+        time.sleep(base_sleep * (0.5 + _random.random()))
+        self.perf.tinc("full_backoff_time", time.monotonic() - t0)
+
+    def _request_map(self) -> None:
+        """Ask the first reachable monitor for a map newer than ours
+        (it answers only when it has one)."""
         with self._lock:
             epoch = self.osdmap.epoch if self.osdmap is not None else 0
         for mon in self.c.mon_names():
@@ -6574,8 +6635,6 @@ class Client:
                 break
             except (KeyError, OSError, ConnectionError):
                 continue
-        time.sleep(base_sleep * (0.5 + _random.random()))
-        self.perf.tinc("full_backoff_time", time.monotonic() - t0)
 
     # -- degraded / hedged read dispatch --------------------------------------
 
@@ -6973,10 +7032,23 @@ class Client:
           next-best shard; the first complete answer wins and the
           loser is cancelled (slot freed, late reply dropped).
         Both paths ride the same windowed rpc, so in-flight accounting
-        stays exactly-once per handle; mutations never hedge."""
+        stays exactly-once per handle; mutations never hedge.
+
+        HOMELESS ops (ref: Objecter's homeless session): a round in
+        which no outstanding op's PG has a primary in our map spends
+        none of the retry budget while maps keep arriving — a live
+        primary marked down under load re-boots within a few epochs,
+        and 30 quick rounds would fail its reads before that commit
+        lands. The round counts again once no newer epoch has come for
+        `timeout` seconds, or the homeless stretch has lasted four
+        times that."""
         if timeout is None:
             timeout = self.c.op_timeout + 8.0   # server-side retry room
         rounds = 0
+        # (epoch, when it was first seen) and the homeless stretch's start
+        map_seen = (self.osdmap.epoch if self.osdmap is not None else 0,
+                    time.monotonic())
+        homeless_since = None
         while rounds < retries:
             outstanding = [op for op in ops
                            if not op.done and op.fatal is None]
@@ -7003,10 +7075,12 @@ class Client:
             hedge_s = self._hedge_delay_s()
             by_tgt: dict[str, list[_WireOp]] = {}
             deg_ops: list[tuple[_WireOp, str]] = []
+            homeless = True
             for op in outstanding:
                 tgt = None
                 try:
                     tgt = self._primary(op.ps)
+                    homeless = False
                 except ConnectionError as e:
                     op.last = str(e)   # no primary yet
                 if op.kind in self._HEDGE_KINDS and op.names is not None \
@@ -7115,6 +7189,18 @@ class Client:
                          if not op.done and op.fatal is None]
             if not remaining:
                 break
+            now = time.monotonic()
+            epoch = self.osdmap.epoch if self.osdmap is not None else 0
+            if epoch != map_seen[0]:
+                map_seen = (epoch, now)
+            if not homeless:
+                homeless_since = None
+            elif homeless_since is None:
+                homeless_since = now
+            if homeless and now - map_seen[1] < timeout \
+                    and now - homeless_since < 4 * timeout:
+                rounds -= 1            # wait for a map with a primary
+                self._request_map()
             if not need_auth:
                 time.sleep(retry_sleep)   # map may be in flight
         self._flush_trace_spans()
@@ -7382,11 +7468,6 @@ class StandaloneCluster:
             replicated_rule
         from ..ec.interface import profile_from_string, resolve_device
         from ..ec.registry import factory
-        if osd_procs:
-            # the twin's one-process-an-OSD mode is osd/multiproc.py
-            raise NotImplementedError(
-                "osd_procs=True needs osd/multiproc.py, which is not "
-                "ported yet (ROADMAP queue 1)")
         # the device of every daemon's backends, maps and CRCs
         self.device = resolve_device(device)
         self.secret = secret
@@ -7903,6 +7984,8 @@ class StandaloneCluster:
                     return False
                 if ps in owner._recovering:
                     return False   # async rebuild still in flight
+                if owner._lagging_slots(be):
+                    return False   # a catch-up is due
             return True
         self._wait(clean, timeout, "all PGs clean")
 

@@ -162,9 +162,9 @@ Phases, each of which fails loudly (exit code 1, no result line):
      SA_GRACE, SA_KILL_GRACE from the kill on, and no cephx: see
      SA_CEPHX), pg_num 32 of RS k=8 m=3 over 512 KiB chunks, every
      interaction a frame on the Messenger, every encode, delta, decode
-     and CRC on the card: 256 x 4 MiB objects written 16 at a time
+     and CRC on the card: 64 x 4 MiB objects written 16 at a time
      (traced for the device's idle share) and read back with read_many,
-     256 seeded 4 KiB write_at overwrites (the parity delta over
+     64 seeded 4 KiB write_at overwrites (the parity delta over
      rmw_fetch frames), an OSD holding shards killed, 32 degraded reads
      (of objects whose primary lives), wait_for_down, wait_for_clean
      (120 s; recovery staged from readv frames), every byte read again
@@ -175,8 +175,40 @@ Phases, each of which fails loudly (exit code 1, no result line):
      messengers' frames and bytes, gf_apply's and CRC32C's launches by
      shape; fails unless gf_apply launched an encode, the (1, 3, 4096)
      delta and a decode, CRC32C launched, recovery staged a readv
-     frame, every read is exact and the scrub is clean.
-Phases 3, 5, 7, 8, 9, 11, 12 and 14 print the CRC32C kernel's launches
+     frame, every read is exact and the scrub is clean;
+ 15. one process an OSD (osd/multiproc.py), then the last modules in
+     this process: (a) phase 14's cluster with each OSD daemon its own
+     OS process on the card (12 children, the monitors and the client
+     here), over cephx and AES-GCM, TinStores in a temporary directory,
+     booted at the JAX package's default 1.2 s heartbeat grace, or at
+     the next of SP_GRACES after a boot that storms (a live OSD marked
+     down+out, PGs not clean in 120 s, an OSD without its osd ticket
+     after 40 s), every child on the cluster's device, every PG clean
+     and one config epoch folded without a suspect; (b) 256 x 4 MiB
+     written 16 at a time (the card's utilization sampled by nvidia-smi
+     meanwhile, each child's CPU seconds from /proc), read back, 256
+     seeded 4 KiB write_at overwrites, a SIGKILL of an OSD holding
+     shards, its down mark and recovery by the survivors, every byte
+     read again against a host model, a deep scrub of every PG (every
+     shard checked), the victim revived as a fresh child over its
+     TinStore (WAL remount) and every byte read once more; (c) the
+     children's own launch counts over their `launches` line (the
+     victim's read before the kill), which must show gf_apply encodes,
+     the (1, 3, 4096) delta and decodes, and CRC32C; (d) the workload
+     engine over the same cluster with WORKLOAD_r20.json's four tenants,
+     seed and duration, every stream digest the artifact's; (e) the
+     seeded thrasher (seed 42, one round of five ops, in this process),
+     its invariants held and its schedule's sha256 printed; (f) the
+     writeback cache tier over SimClusters on the card (an RS k=8 m=3
+     base, a replicated size=2 cache, 64 x 4 MiB at a 64 MiB target):
+     every read exact through the tier and from the base after
+     flush_evict_all, the base's flushes gf_apply encodes; (g) the EC
+     runtime server behind the native shim: NativeReedSolomon k=8 m=3
+     encodes 8 x 8 x 512 KiB and decodes shards 0 and 9 through it,
+     the bytes the shim's own CPU codec's and the server's gf_apply
+     launches counted (the shim falls back to the CPU in C on any
+     socket failure).
+Phases 3, 5, 7, 8, 9, 11, 12, 14 and 15 print the CRC32C kernel's launches
 and fail if there are none; phase 9 also needs XXH32, XXH64 and gf_apply
 launches, phase 10 a scorer launch a round.
 Phase 4 also times the checksum kernels at the main path's shapes
@@ -250,7 +282,12 @@ mesh; on a host with four cards, NCCL across them at (1, 4) and (2, 2).
 builds gf_apply.cu, csum.cu and the native library and runs phase 14
 alone, with its gates, then prints the card and one JSON object of its
 results.
-The line before the last is a JSON object with one entry per kernel;
+
+    python3 chip_smoke.py --osd-procs
+
+does the same for phase 15.
+The full run logs each phase's seconds before its kernels line. The
+line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of ceph_tpu, and needs one card.
@@ -259,6 +296,7 @@ It imports nothing of JAX and nothing of ceph_tpu, and needs one card.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import multiprocessing
 import os
@@ -323,20 +361,39 @@ RGW_PART = 8 << 20
 MESH_OBJECTS = 32            # phase 13: objects a dp row
 SA_OSDS = 12                 # phase 14: the standalone cluster
 SA_PGS = 32
-SA_OBJECTS = 256
+SA_OBJECTS = 64              # 256 MiB: phase 15 writes the full GiB
 SA_INFLIGHT = 16             # op_window: rados bench -t 16
 SA_OP_TIMEOUT = 3.0          # tools/rados_bench.py's standalone writes
-SA_RANDOM = 256              # 4 KiB write_at overwrites
+SA_RANDOM = 64               # 4 KiB write_at overwrites
 SA_DEGRADED = 32
 # 12 daemons in one process, the JAX package's alike (PERF.md PR 12):
 # they miss the 1.2 s default heartbeat grace at boot, so the phase
-# writes and reads under SA_GRACE and kills under SA_KILL_GRACE; and the
-# monitors' cephx ticket service times out for a third of the OSDs, so
-# the phase runs AES-GCM sessions without cephx (the CPU tests hold
-# cephx on 8 OSDs)
+# writes and reads under SA_GRACE and kills under SA_KILL_GRACE, Ceph's
+# own osd_heartbeat_grace default (at 8 s a host slowed by other load
+# marked five live OSDs down+out after the kill, and the PGs ran out of
+# shards); and the monitors' cephx ticket service times out for a third
+# of the OSDs, so the phase runs AES-GCM sessions without cephx (the CPU
+# tests hold cephx on 8 OSDs)
 SA_GRACE = 60.0
-SA_KILL_GRACE = 8.0
+SA_KILL_GRACE = 20.0
 SA_CEPHX = False
+# phase 15: the same cluster with each OSD its own process, over cephx;
+# booted at the JAX package's default heartbeat grace first, then at the
+# next of these graces after each boot that storms (a live OSD marked
+# down, a PG not clean, an OSD without its osd ticket)
+SP_OBJECTS = 256
+SP_RANDOM = 256
+SP_GRACES = (1.2, 5.0, 20.0, 60.0)
+SP_SETTLE = 5.0              # seconds watched for false down marks
+SP_KILL_GRACE = 8.0          # the least grace the kill and recovery run at
+SP_REVIVE_GRACE = 30.0       # the heartbeat grace the revive runs under
+SP_TICKETS = 40.0            # seconds for every OSD's osd ticket
+WORKLOAD_REF = "WORKLOAD_r20.json"
+THRASH = {"seed": 42, "rounds": 1, "ops": 5}
+TIER_OBJECTS = 64
+TIER_TARGET = 64 << 20       # target_max_bytes: a quarter of the objects
+TIER_GROUP = 4               # objects a tier.write
+RT_BATCH = 8                 # objects of the runtime server's encode
 
 LRC_PROFILE = "plugin=lrc k=8 m=4 l=4"
 CLAY_PROFILE = "plugin=clay k=8 m=4 d=11"
@@ -3469,8 +3526,8 @@ def standalone_path(torch, dev) -> dict:
     """The wire tier on the card: a StandaloneCluster (osd/standalone.py)
     of SA_OSDS OSD daemons, three Paxos monitors and a cephx client over
     AES-GCM sessions, every interaction a frame on the Messenger. Writes
-    256 x 4 MiB 16 at a time (traced), reads them back, overwrites 4 KiB
-    ranges, kills an OSD holding shards, reads degraded, waits for the
+    SA_OBJECTS x 4 MiB 16 at a time (traced), reads them back, overwrites
+    4 KiB ranges, kills an OSD holding shards, reads degraded, waits for the
     down mark and for recovery onto the new acting sets, reads
     everything again against a host model and deep-scrubs every PG.
     The kernels and the native library must be built before: a first
@@ -3511,6 +3568,35 @@ def suspects(c) -> dict:
             if d.suspect}
 
 
+def unclean_pgs(c) -> dict:
+    """Why each PG of the in-process cluster `c` is not clean yet, by
+    wait_for_clean's tests: no live primary in its map, no backend, a
+    backend on another acting set, a recovery in flight, or a lagging
+    slot."""
+    out = {}
+    for ps in range(c.pg_num):
+        owner = None
+        for d in c.osds.values():
+            if d._stop.is_set() or d.osdmap is None:
+                continue
+            acting = d.osdmap.pg_to_up_acting_osds(1, ps)[2]
+            if acting and acting[0] == d.osd_id:
+                owner = d
+                break
+        be = owner.backends.get(ps) if owner is not None else None
+        if owner is None:
+            out[ps] = "no primary"
+        elif be is None:
+            out[ps] = f"osd.{owner.osd_id}: no backend"
+        elif be.acting != acting:
+            out[ps] = f"osd.{owner.osd_id}: backend on {be.acting}"
+        elif ps in owner._recovering:
+            out[ps] = f"osd.{owner.osd_id}: recovering"
+        elif owner._lagging_slots(be):
+            out[ps] = f"osd.{owner.osd_id}: lagging slots"
+    return out
+
+
 def standalone_run(torch, dev, c, frames, t_phase) -> dict:
     """standalone_path's steps on the started cluster `c`; `frames`
     counts the readv frames submitted."""
@@ -3534,8 +3620,14 @@ def standalone_run(torch, dev, c, frames, t_phase) -> dict:
     # before its standalone writes: a primary still peering gathers PG
     # metadata with a 1 s timeout, which the writes' frames outlast, and
     # suspects the peers that answer late; writes skip suspects until
-    # one falls below min_size
-    c.wait_for_clean(timeout=60)
+    # one falls below min_size. The budget is phase 15's: a host slowed
+    # by other load once took longer than 60 s to peer all 32 PGs
+    try:
+        c.wait_for_clean(timeout=120)
+    except TimeoutError:
+        log(f"  PGs not clean at boot: {unclean_pgs(c)}; suspects "
+            f"{suspects(c)}")
+        raise
     cl = c.client()
     # then one committed epoch, which clears every suspicion left from
     # boot; it turns the daemons' sampling profilers off as well, as
@@ -3675,7 +3767,21 @@ def standalone_run(torch, dev, c, frames, t_phase) -> dict:
     deg = [i for i in held if acting(names[i])[1][0] != victim][
         :SA_DEGRADED]
     t0 = time.perf_counter()
-    same("degraded read", cl.read_many([names[i] for i in deg]), deg)
+    try:
+        same("degraded read", cl.read_many([names[i] for i in deg]), deg)
+    except ConnectionError:
+        # the client's view when a read gave up: which OSDs its map
+        # holds down or out, and the acting sets of the PGs read
+        m = cl.osdmap
+        pgs = sorted({acting(names[i])[0] for i in deg})
+        log(f"  degraded read failed {time.perf_counter() - t0:.1f} s "
+            f"after the kill: client map epoch {m.epoch}, down "
+            f"{[o for o, up in enumerate(m.osd_up) if not up]}, out "
+            f"{[o for o, w in enumerate(m.osd_weight) if w == 0]}, "
+            f"acting sets "
+            f"{ {ps: m.pg_to_up_acting_osds(1, ps)[2] for ps in pgs} }, "
+            f"suspects {suspects(c)}")
+        raise
     t_deg = time.perf_counter() - t0
     # the down mark waits for two reporters and a Paxos commit among 12
     # in-process daemons on one host: a generous budget
@@ -3759,6 +3865,823 @@ def standalone_phase(torch, dev) -> tuple:
                "gf_apply_by_shape": by_shape(shapes),
                "crc32c_launches": crc})
     return sa, launches, shapes, crc
+
+
+# ------------------------------------------------------------ phase 15
+
+def proc_cpu_s(pid: int) -> float:
+    """User + system CPU seconds of process `pid` so far, from
+    /proc/<pid>/stat (utime and stime, fields 14 and 15)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+class CardSampler:
+    """nvidia-smi's utilization.gpu every 100 ms while the with-block
+    runs: the share of each sample period in which a kernel of any
+    process ran on the card (the children's included, which the parent's
+    torch.profiler cannot see). No samples where there is no nvidia-smi
+    (a rehearsal on the CPU)."""
+
+    def __enter__(self):
+        self.samples = []
+        try:
+            self._proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=utilization.gpu",
+                 "--format=csv,noheader,nounits", "-lms", "100"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                text=True)
+        except OSError:
+            self._proc = None
+        return self
+
+    def __exit__(self, *exc):
+        if self._proc is None:
+            return
+        self._proc.terminate()
+        try:
+            out = self._proc.communicate(timeout=10)[0]
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+            out = self._proc.communicate()[0]
+        for line in out.splitlines():
+            try:
+                self.samples.append(float(line.split(",")[0]))
+            except ValueError:
+                pass
+
+    def busy_share(self) -> float | None:
+        if not self.samples:
+            return None
+        return statistics.fmean(self.samples) / 100
+
+
+def procs_state(c, what: str) -> None:
+    """Log each live child's view where a wait of phase 15 failed: its
+    map epoch and suspects, the PGs it primaries that are not clean, its
+    recovered objects, the last lines of its log that speak of recovery
+    or failure, and the end of its stderr."""
+    import re
+
+    from ceph_tpu_torch.utils.admin_socket import AdminSocketError
+    log(f"  {what} failed; monitors at epoch "
+        f"{[m.osdmap.epoch for m in c.mons if m.osdmap is not None]}")
+    for h in c.osds.values():
+        if h._stop.is_set():
+            continue
+        try:
+            st = h.asok("status", timeout=30.0)
+            claims = h.asok("pg clean", timeout=30.0)
+            ec = h.asok("perf dump", timeout=30.0)["ec"]
+            lines = h.asok("log dump", timeout=30.0)["lines"]
+        except (OSError, AdminSocketError, ValueError, KeyError) as e:
+            log(f"    {h.name}: no answer ({e!r}); stderr ends "
+                f"{h.stderr_tail(600)!r}")
+            continue
+        said = [line for line in lines
+                if re.search(r"recover|fail|error|Error|timed out", line)]
+        log(f"    {h.name}: epoch {st['osdmap_epoch']}, suspects "
+            f"{st['suspect']}, not clean {sorted(k for k, v in claims.items() if not v)} "
+            f"of {len(claims)}, recovered_objects "
+            f"{ec.get('recovered_objects')}; log {said[-4:]}; stderr ends "
+            f"{h.stderr_tail(300)!r}")
+
+
+def settled_or_undersized(c, held_pgs: list, rec0: int, victim: int
+                          ) -> list | None:
+    """After a kill: None until every PG's primary claims it clean and
+    the survivors have recovered every object that had a shard on the
+    victim (`held_pgs`: the PG of each), but for the PGs whose acting
+    set in the committed map holds a CRUSH_ITEM_NONE slot (12 OSDs, 11
+    shards a PG: CRUSH cannot always place 11 on the 11 left; ROADMAP
+    queue 3), which stay undersized until the victim returns; then the
+    list of those PGs."""
+    from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.utils.admin_socket import AdminSocketError
+    osdmap = next(m.osdmap for m in c.mons if not m._stop.is_set())
+    holes = [ps for ps in range(c.pg_num)
+             if CRUSH_ITEM_NONE in osdmap.pg_to_up_acting_osds(1, ps)[2]]
+    want = sum(ps not in holes for ps in held_pgs)
+    try:
+        if child_perf(c, "recovered_objects", skip={victim}) - rec0 < want:
+            return None
+        claims: dict = {}
+        for h in c.osds.values():
+            if not h._stop.is_set():
+                for pg, ok in h.asok("pg clean", timeout=10.0).items():
+                    claims[pg] = claims.get(pg, False) or ok
+    except (OSError, AdminSocketError, ValueError, KeyError):
+        return None
+    if all(claims.get(f"1.{ps}") for ps in range(c.pg_num)
+           if ps not in holes):
+        return holes
+    return None
+
+
+def child_perf(c, key: str, skip=()) -> int:
+    """The OSD children's `ec` perf counter `key`, summed over their
+    admin sockets (a child's RAM is out of the parent's reach)."""
+    return sum(h.asok("perf dump", timeout=10.0)["ec"][key]
+               for o, h in c.osds.items()
+               if o not in skip and not h._stop.is_set())
+
+
+def tickets_held(c) -> int:
+    """OSD children that fetched their service tickets: a fetch round
+    that completed (cephx fetch_time's count in their perf dump)."""
+    from ceph_tpu_torch.utils.admin_socket import AdminSocketError
+    held = 0
+    for h in c.osds.values():
+        try:
+            dump = h.asok("perf dump", timeout=5.0)
+        except (OSError, AdminSocketError, ValueError):
+            continue
+        held += dump.get("cephx", {}).get("fetch_time", {}).get(
+            "avgcount", 0) > 0
+    return held
+
+
+class BootStorm(RuntimeError):
+    """A live OSD marked down+out while phase 15's cluster boots."""
+
+
+def storm_guarded(S, marks: list):
+    """StandaloneCluster for phase 15's boots: every wait of its boot
+    stops at the first down+out the monitors commit (`marks` grows),
+    and a boot that fails shuts down the processes it started (the
+    constructor raises with its children up)."""
+    class Cluster(S.StandaloneCluster):
+        def __init__(self, **kw):
+            self.booting = len(marks)
+            try:
+                super().__init__(**kw)
+            except BaseException:
+                with contextlib.suppress(AttributeError):
+                    self.shutdown()
+                raise
+
+        def _wait(self, pred, timeout: float, what: str) -> None:
+            def watched() -> bool:
+                if self.booting is not None and len(marks) > self.booting:
+                    raise BootStorm(
+                        f"{sorted({o for _t, o in marks[self.booting:]})} "
+                        f"marked down+out while waiting for {what}")
+                return pred()
+            super()._wait(watched, timeout, what)
+    return Cluster
+
+
+def settle(c, boot: dict, faults: list, t1: float) -> None:
+    """procs_boot's waits on the constructed cluster `c`: every PG
+    clean, every child's osd ticket, one committed config epoch folded
+    by every child without a suspect, then SP_SETTLE seconds. Adds its
+    numbers to `boot` and what failed to `faults`."""
+    from ceph_tpu_torch.utils.admin_socket import AdminSocketError
+    try:
+        c.wait_for_clean(timeout=120)
+    except TimeoutError:
+        faults.append("PGs not clean in 120 s")
+    boot["ready_to_clean_s"] = time.perf_counter() - t1
+    t_end = time.monotonic() + SP_TICKETS
+    while tickets_held(c) < SA_OSDS and time.monotonic() < t_end:
+        time.sleep(0.5)
+    boot["osds_with_tickets"] = tickets_held(c)
+    if boot["osds_with_tickets"] < SA_OSDS:
+        faults.append(f"{boot['osds_with_tickets']} of {SA_OSDS} OSDs "
+                      f"hold their osd ticket after {SP_TICKETS:.0f} s")
+    # one committed epoch clears the suspicion left from boot and turns
+    # the daemons' sampling profilers off (phase 14's step)
+    cl = c.client()
+    cl.config_set("daemon_profile_hz", "0", timeout=60)
+    epoch = max(m.osdmap.epoch for m in c.mons if not m._stop.is_set())
+    t_end = time.monotonic() + 60
+    while True:
+        status = {}
+        for h in c.osds.values():
+            try:
+                st = h.asok("status", timeout=10.0)
+                status[h.name] = (st["osdmap_epoch"], st["suspect"])
+            except (OSError, AdminSocketError, ValueError) as e:
+                status[h.name] = (0, repr(e))
+        if all(e >= epoch and not sus for e, sus in status.values()):
+            break
+        if time.monotonic() > t_end:
+            faults.append(f"epoch {epoch} not folded without suspects: "
+                          f"{status}")
+            break
+        time.sleep(0.2)
+    time.sleep(SP_SETTLE)
+    c._wait(lambda: True, 1, "the settle")    # a storm since raises
+
+
+def procs_boot(torch, dev, S, store_dir: str, grace: float, marks: list
+               ) -> tuple:
+    """One boot of phase 15's cluster at heartbeat grace `grace`: spawn
+    to ready, every PG clean, every OSD's osd ticket, one committed
+    config epoch folded by every child, then SP_SETTLE seconds watched.
+    Returns the cluster (None where the boot failed), the boot's numbers
+    and its faults (the boot storm and the cephx ticket fault of
+    ROADMAP queue 3)."""
+    n0 = len(marks)
+    t0 = time.perf_counter()
+    boot = {"grace_s": grace}
+    try:
+        c = storm_guarded(S, marks)(
+            n_osds=SA_OSDS, pg_num=SA_PGS,
+            profile=f"plugin=tpu_rs k={K} m={M}",
+            chunk_size=OBJECT_SIZE // K, osd_procs=True, store="tin",
+            store_dir=store_dir, cephx=True, secret=os.urandom(32),
+            op_window=SA_INFLIGHT, op_timeout=SA_OP_TIMEOUT, hb_grace=grace,
+            **entry_device(dev))
+    except (BootStorm, TimeoutError) as e:
+        boot.update({"failed_after_s": time.perf_counter() - t0,
+                     "false_down_marks": sorted({o for _t, o in marks[n0:]}),
+                     "faults": [str(e)]})
+        log(f"  boot at a {grace} s heartbeat grace failed after "
+            f"{boot['failed_after_s']:.2f} s: {e}")
+        return None, boot, boot["faults"]
+    boot["spawn_to_ready_s"] = time.perf_counter() - t0
+    faults = []
+    devices = {h.name: h.device for h in c.osds.values()}
+    want = str(torch.device(dev.type, torch.cuda.current_device())
+               if dev.type == "cuda" else dev)
+    if set(devices.values()) != {want}:
+        fail(f"phase 15: children on {devices}, the cluster on {c.device}")
+    t1 = time.perf_counter()
+    try:
+        settle(c, boot, faults, t1)
+    except BootStorm as e:
+        faults.append(str(e))
+    c.booting = None
+    boot["spawn_to_settled_s"] = time.perf_counter() - t0
+    boot["false_down_marks"] = sorted({osd for _t, osd in marks[n0:]})
+    boot["faults"] = faults
+    free, total = torch.cuda.mem_get_info() if dev.type == "cuda" else (
+        None, None)
+    boot.update({"child_devices": sorted(set(devices.values())),
+                 "card_free_bytes": free, "card_total_bytes": total})
+    log(f"  boot at a {grace} s heartbeat grace: spawn -> ready "
+        f"{boot['spawn_to_ready_s']:.2f} s, ready -> clean "
+        f"{boot.get('ready_to_clean_s', 0):.2f} s, "
+        f"{boot.get('osds_with_tickets')} "
+        f"OSDs with tickets, settled {boot['spawn_to_settled_s']:.2f} s "
+        f"after the spawn; children on {boot['child_devices']}; card "
+        f"memory free {free} of {total} B; faults {faults or 'none'}")
+    return c, boot, faults
+
+
+def workload_run(c) -> dict:
+    """The workload engine over the phase's cluster: WORKLOAD_r20.json's
+    tenants, seed and duration, no kill; every tenant's stream digest
+    must be the artifact's."""
+    from ceph_tpu_torch.workload import WorkloadEngine, parse_profiles
+    ref = json.loads((Path(__file__).resolve().parent / WORKLOAD_REF)
+                     .read_text())
+    engine = WorkloadEngine(c, parse_profiles(ref["profiles"]),
+                            seed=int(ref["config"]["seed"]),
+                            duration_s=float(ref["config"]["duration_s"]))
+    t0 = time.perf_counter()
+    engine.setup()
+    t_setup = time.perf_counter() - t0
+    engine.run()
+    results = engine.results()
+    for name, row in results.items():
+        if row["digest"] != ref["streams"][name]["digest"]:
+            fail(f"phase 15: tenant {name}'s stream digest {row['digest']} "
+                 f"is not {WORKLOAD_REF}'s")
+        if row["ops"] == 0:
+            fail(f"phase 15: tenant {name} completed no op: {row}")
+    tenants = {name: {key: row.get(key) for key in (
+        "stream_ops", "ops", "errors", "p50_ms", "p99_ms", "routed")}
+        for name, row in results.items()}
+    log(f"  workload engine ({len(results)} tenants, seed "
+        f"{engine.seed}, {engine.duration_s} s of streams): setup "
+        f"{t_setup:.2f} s, run {engine.elapsed:.2f} s; digests are "
+        f"{WORKLOAD_REF}'s; {json.dumps(tenants)}")
+    return {"setup_s": t_setup, "run_s": engine.elapsed,
+            "tenants": tenants}
+
+
+def procs_run(torch, dev, c, marks: list, grace: float) -> tuple:
+    """Phase 15's steps on the booted cluster `c`: returns its numbers
+    and every child's launch counts (the victim's read before the
+    kill)."""
+    import numpy as np
+
+    out: dict = {}
+    cl = c.clients[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 15)
+    names = [f"sp_{i:04d}" for i in range(SP_OBJECTS)]
+    rows = torch.randint(0, 256, (SP_OBJECTS, OBJECT_SIZE),
+                         dtype=torch.uint8, device=dev,
+                         generator=gen).cpu().numpy()
+
+    def same(label: str, got: dict, idx) -> None:
+        for i in idx:
+            g = got.get(names[i])
+            if g is None or len(g) != OBJECT_SIZE or not np.array_equal(
+                    np.frombuffer(g, np.uint8), rows[i]):
+                fail(f"phase 15: {label}: {names[i]} differs from the "
+                     f"bytes written")
+
+    def read_all(label: str) -> float:
+        t0 = time.perf_counter()
+        for i in range(0, SP_OBJECTS, SA_INFLIGHT):
+            idx = range(i, min(SP_OBJECTS, i + SA_INFLIGHT))
+            same(label, cl.read_many([names[j] for j in idx]), idx)
+        return time.perf_counter() - t0
+
+    gbytes = SP_OBJECTS * OBJECT_SIZE / 1e9
+    pids = {h.name: h._proc.pid for h in c.osds.values()}
+    cpu0 = {name: proc_cpu_s(pid) for name, pid in pids.items()}
+    own0 = time.process_time()
+    with CardSampler() as card:
+        t0 = time.perf_counter()
+        for i in range(0, SP_OBJECTS, SA_INFLIGHT):
+            cl.write({names[j]: rows[j].tobytes() for j in
+                      range(i, min(SP_OBJECTS, i + SA_INFLIGHT))})
+        t_write = time.perf_counter() - t0
+    cpu = {name: proc_cpu_s(pid) - cpu0[name] for name, pid in pids.items()}
+    own = time.process_time() - own0
+    busy = card.busy_share()
+    t_read = read_all("read_many")
+    out.update({"objects": SP_OBJECTS, "object_bytes": OBJECT_SIZE,
+                "write_s": t_write, "write_gbps": gbytes / t_write,
+                "write_card_busy_share": busy,
+                "write_idle_share": None if busy is None else 1 - busy,
+                "write_card_samples": len(card.samples),
+                "write_child_cpu_s": cpu, "write_parent_cpu_s": own,
+                "read_s": t_read, "read_gbps": gbytes / t_read})
+    log(f"  {SA_OSDS} OSD processes, {SA_PGS} PGs, cephx over AES-GCM; "
+        f"{SP_OBJECTS} x {OBJECT_SIZE >> 20} MiB written "
+        f"{gbytes / t_write:.4f} GB/s (card busy {show(busy)} of the "
+        f"write in {len(card.samples)} nvidia-smi samples, idle "
+        f"{show(None if busy is None else 1 - busy)}), read "
+        f"{gbytes / t_read:.4f} GB/s (host clock), exact; CPU seconds "
+        f"over the write: children {json.dumps(cpu)} (sum "
+        f"{sum(cpu.values()):.2f}), this process {own:.2f}")
+
+    # -- 4 KiB overwrites: the parity delta in the primary's process ----
+    rng = np.random.default_rng(SEED + 15)
+    picks = rng.integers(0, SP_OBJECTS, SP_RANDOM)
+    offs = rng.integers(0, OBJECT_SIZE // RBD_BLOCK, SP_RANDOM) * RBD_BLOCK
+    data = torch.randint(0, 256, (SP_RANDOM, RBD_BLOCK), dtype=torch.uint8,
+                         device=dev, generator=gen).cpu().numpy()
+    rmw0 = child_perf(c, "rmw_ops")
+    t0 = time.perf_counter()
+    for i in range(SP_RANDOM):
+        j, off = int(picks[i]), int(offs[i])
+        cl.write_at(names[j], off, data[i].tobytes())
+        rows[j, off:off + RBD_BLOCK] = data[i]
+    t_rand = time.perf_counter() - t0
+    rmw = child_perf(c, "rmw_ops") - rmw0
+    touched = sorted({int(j) for j in picks})
+    got = {}
+    for i in range(0, len(touched), SA_INFLIGHT):
+        got.update(cl.read_many([names[j] for j in
+                                 touched[i:i + SA_INFLIGHT]]))
+    same("read after write_at", got, touched)
+    out.update({"write_at_ops": SP_RANDOM, "write_at_s": t_rand,
+                "write_at_ops_s": SP_RANDOM / t_rand, "rmw_ops": rmw})
+    log(f"  {SP_RANDOM} random {RBD_BLOCK} B write_at at "
+        f"{SP_RANDOM / t_rand:.1f} ops/s (host clock), {rmw} on the delta "
+        f"path; reads exact; live OSDs marked down so far "
+        f"{sorted({osd for _t, osd in marks})}")
+
+    # -- SIGKILL an OSD holding shards; down; recovery -------------------
+    osdmap = cl.osdmap
+
+    def acting(name: str) -> list:
+        return osdmap.pg_to_up_acting_osds(
+            1, osdmap.object_to_pg(1, name)[1])[2]
+    victim = acting(names[0])[1]
+    held = [i for i in range(SP_OBJECTS) if victim in acting(names[i])]
+    held_pgs = [osdmap.object_to_pg(1, names[i])[1] for i in held]
+    counts = [c.osds[victim].launches()]
+    # the recovery's load holds the children's pings seconds late: at
+    # the 1.2 s default their peers mark live OSDs down again and again
+    # and the children fall tens of epochs behind (ROADMAP queue 3), so
+    # the kill runs at SP_KILL_GRACE at least
+    kill_grace = max(grace, SP_KILL_GRACE)
+    cl.config_set("osd_heartbeat_grace", str(kill_grace), timeout=60)
+    rec0 = child_perf(c, "recovered_objects", skip={victim})
+    seen = {"down": None, "recovered": 0, "last": None}
+    stop = threading.Event()
+
+    def watch_down() -> None:
+        # the monitors' committed map, in this process: cheap to poll
+        while seen["down"] is None and not stop.wait(0.02):
+            if any(m.osdmap is not None and not m.osdmap.osd_up[victim]
+                   for m in c.mons if not m._stop.is_set()):
+                seen["down"] = time.perf_counter()
+
+    def watch_recovery() -> None:
+        # the children's counters, over their admin sockets
+        from ceph_tpu_torch.utils.admin_socket import AdminSocketError
+        while not stop.wait(0.25):
+            try:
+                n = child_perf(c, "recovered_objects", skip={victim}) - rec0
+            except (OSError, AdminSocketError, ValueError, KeyError):
+                continue
+            if n > seen["recovered"]:
+                seen["recovered"], seen["last"] = n, time.perf_counter()
+    watchers = [threading.Thread(target=fn, daemon=True)
+                for fn in (watch_down, watch_recovery)]
+    n_marks = len(marks)
+    t_kill = time.perf_counter()
+    c.kill_osd(victim)
+    for w in watchers:
+        w.start()
+    try:
+        c.wait_for_down(victim, timeout=120)
+    except TimeoutError:
+        procs_state(c, f"the wait for osd.{victim}'s down mark")
+        raise
+    t_down_all = time.perf_counter()
+    log(f"  osd.{victim} down everywhere {t_down_all - t_kill:.3f} s after "
+        f"its SIGKILL")
+    t_end = time.monotonic() + 240
+    while (undersized := settled_or_undersized(
+            c, held_pgs, rec0, victim)) is None:
+        if time.monotonic() > t_end:
+            log(f"  {seen['recovered']} objects recovered by "
+                f"{time.perf_counter() - t_kill:.1f} s after the kill")
+            procs_state(c, f"the wait for osd.{victim}'s recovery")
+            fail(f"phase 15: recovery after osd.{victim}'s SIGKILL not "
+                 f"settled in 240 s")
+        time.sleep(0.25)
+    t_clean_all = time.perf_counter()
+    stop.set()
+    for w in watchers:
+        w.join(5)
+    recovered = child_perf(c, "recovered_objects", skip={victim}) - rec0
+    wire = child_perf(c, "recover_wire_bytes", skip={victim})
+    t_down = seen["down"] or t_down_all
+    t_last = max(seen["last"] or t_down, t_down)
+    if recovered == 0:
+        fail(f"phase 15: no object recovered after osd.{victim}'s kill")
+    out.update({"victim": victim, "objects_on_victim": len(held),
+                "kill_grace_s": kill_grace,
+                "kill_to_down_s": t_down - t_kill,
+                "kill_to_down_everywhere_s": t_down_all - t_kill,
+                "down_to_last_recovered_s": t_last - t_down,
+                "kill_to_settled_s": t_clean_all - t_kill,
+                "undersized_pgs": undersized,
+                "recovered_objects": recovered,
+                "recovered_objects_s": recovered / max(t_last - t_down,
+                                                       1e-9),
+                "recover_wire_bytes": wire,
+                "down_marks_after_kill": sorted({
+                    osd for _t, osd in marks[n_marks:]})})
+    log(f"  osd.{victim} ({len(held)} objects with a shard on it) "
+        f"SIGKILLed at a {kill_grace} s grace: down in the monitors' map "
+        f"after "
+        f"{t_down - t_kill:.3f} s, in every child's after "
+        f"{t_down_all - t_kill:.3f} s; {recovered} objects recovered, the "
+        f"last {t_last - t_down:.3f} s after the down mark "
+        f"({out['recovered_objects_s']:.1f} objects/s), every PG clean "
+        f"{t_clean_all - t_kill:.3f} s after the kill but {undersized} "
+        f"(undersized: a CRUSH_ITEM_NONE slot); recover_wire_bytes "
+        f"{wire}; down marks since the kill "
+        f"{out['down_marks_after_kill']}")
+
+    # -- everything again, a deep scrub, the victim revived ----------------
+    t_reread = read_all("read after recovery")
+    t0 = time.perf_counter()
+    checked = 0
+    for ps in range(SA_PGS):
+        rep = cl.deep_scrub(ps)
+        if rep["inconsistent"]:
+            fail(f"phase 15: deep scrub of PG {ps}: {rep['inconsistent']}")
+        checked += rep["checked"]
+    t_scrub = time.perf_counter() - t0
+    # every shard, but at most one an object of an undersized PG (its
+    # slot without an OSD, which the scrub skips)
+    pgs = [osdmap.object_to_pg(1, n)[1] for n in names]
+    least = SP_OBJECTS * (K + M) - sum(ps in undersized for ps in pgs)
+    if not least <= checked <= SP_OBJECTS * (K + M):
+        fail(f"phase 15: deep scrub checked {checked} shards, not "
+             f"{least} to {SP_OBJECTS * (K + M)}")
+    # a revived child folding the map history answers pings seconds
+    # late, and at the boot's grace its peers mark it down again and
+    # again (ROADMAP queue 3): the revive runs under SP_REVIVE_GRACE
+    cl.config_set("osd_heartbeat_grace", str(SP_REVIVE_GRACE), timeout=60)
+    t0 = time.perf_counter()
+    c.revive_osd(victim)
+    t_ready = time.perf_counter() - t0
+    try:
+        c.wait_for_clean(timeout=240)
+    except TimeoutError:
+        procs_state(c, f"the wait after osd.{victim}'s revive")
+        raise
+    t_revive = time.perf_counter() - t0
+    t_after = read_all("read after the revive")
+    out.update({"reread_s": t_reread, "deep_scrub_s": t_scrub,
+                "shards_scrubbed": checked, "revive_ready_s": t_ready,
+                "revive_clean_s": t_revive, "read_after_revive_s": t_after})
+    log(f"  every byte read again exact in {t_reread:.3f} s; deep scrub "
+        f"of {SA_PGS} PGs clean ({checked} shards) in {t_scrub:.3f} s; "
+        f"osd.{victim} revived at a {SP_REVIVE_GRACE} s grace over its "
+        f"TinStore (WAL remount): ready in "
+        f"{t_ready:.3f} s, clean in {t_revive:.3f} s, every byte read "
+        f"exact again in {t_after:.3f} s")
+    out["workload"] = workload_run(c)
+    counts += [h.launches() for h in c.osds.values() if not h._stop.is_set()]
+    out["false_down_marks_before_kill"] = sorted({
+        osd for _t, osd in marks[:n_marks]})
+    return out, counts
+
+
+def child_launches(counts: list) -> tuple:
+    """The children's launch counts summed: gf_apply's total and by (k,
+    m, L, vec), the checksum kernels' by name, the CRC kernel's by
+    shape."""
+    total, shapes = 0, collections.Counter()
+    csum, crc_shapes = collections.Counter(), collections.Counter()
+    for n in counts:
+        total += n["gf_apply"]["launches"]
+        for key, k in n["gf_apply"]["by_shape"].items():
+            shapes[tuple(int(x) for x in key.split(","))] += k
+        csum.update(n["csum"]["launches"])
+        crc_shapes.update(n["csum"]["shapes"])
+    return total, shapes, csum, crc_shapes
+
+
+def procs_path(torch, dev) -> tuple:
+    """Phase 15's cluster of OSD processes, (a) to (d): boot at the
+    twin's default grace (the next of SP_GRACES after a boot that
+    storms), the run and the workload engine. Returns its numbers and
+    every child's launch counts."""
+    import shutil
+    import tempfile
+
+    from ceph_tpu_torch.osd import standalone as S
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.zeros(1, device=dev).sum().item()
+    log(f"  host: os.cpu_count() {os.cpu_count()}, "
+        f"sched_getaffinity {len(os.sched_getaffinity(0))} cores")
+    # the monitors live in this process: every down+out they commit
+    # passes through the cluster's log as (time, "osd.N")
+    import re
+    marks: list = []
+    cluster_log = S.StandaloneCluster.log
+
+    def counted(self, msg: str) -> None:
+        hit = re.search(r"marking (osd\.\d+) down\+out", msg)
+        if hit:
+            marks.append((time.perf_counter(), hit.group(1)))
+        cluster_log(self, msg)
+    S.StandaloneCluster.log = counted
+    root = tempfile.mkdtemp(prefix="phase15-")
+    c = None
+    try:
+        boots = []
+        for grace in SP_GRACES:
+            c, boot, faults = procs_boot(torch, dev, S, os.path.join(
+                root, f"grace-{grace}"), grace, marks)
+            boots.append(boot)
+            if not faults:
+                break
+            log(f"  the boot at a {grace} s grace storms: {faults}")
+            if c is not None:
+                c.shutdown()
+                c = None
+            marks.clear()
+        if c is None:
+            fail(f"phase 15: every heartbeat grace of {SP_GRACES} storms")
+        out, counts = procs_run(torch, dev, c, marks, boot["grace_s"])
+        out["boots"] = boots
+        return out, counts
+    finally:
+        if c is not None:
+            c.shutdown()
+        S.StandaloneCluster.log = cluster_log
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def thrash_path(dev) -> dict:
+    """The seeded thrasher in this process (MemStores, cephx, AES-GCM,
+    socket-failure and delay injection): seed 42, one round of five ops.
+    Its profile is the JAX package's default less `impl=bitlinear`, which
+    in the port names the torch-ops apply, not gf_apply; the profile
+    draws nothing, so the schedule is the seed's."""
+    import hashlib
+
+    from ceph_tpu_torch.chaos import Thrasher
+    th = Thrasher(THRASH["seed"], rounds=THRASH["rounds"], ops=THRASH["ops"],
+                  profile="plugin=tpu_rs k=2 m=1", **entry_device(dev))
+    t0 = time.perf_counter()
+    report = th.run()        # InvariantViolation fails the phase
+    lines = [line for line in th.schedule if not line.startswith("parked")]
+    sha = hashlib.sha256("\n".join(lines).encode()).hexdigest()
+    parked = len(th.schedule) - len(lines)
+    log(f"  thrasher seed {th.seed}: invariants held in "
+        f"{time.perf_counter() - t0:.2f} s, {report['objects_verified']} "
+        f"objects verified, {parked} ops parked; schedule sha256 {sha} "
+        f"({len(lines)} lines)")
+    return {"seconds": time.perf_counter() - t0, "schedule_sha256": sha,
+            "schedule_lines": len(lines), "parked": parked,
+            "objects_verified": report["objects_verified"],
+            "unknown_fate": report["unknown_fate"]}
+
+
+def tier_path(torch, dev) -> dict:
+    """The writeback cache tier over SimClusters on the card: an RS
+    k=8 m=3 base of 12 OSDs and a replicated size=2 cache of 4
+    (tools/ceph_cli.py's cmd_tier), 64 seeded 4 MiB objects through it
+    at a 64 MiB target, so the agent flushes and evicts; every read
+    exact through the tier and from the base after flush_evict_all."""
+    import numpy as np
+
+    from ceph_tpu_torch.ops import gf_kernel as G
+    from ceph_tpu_torch.osd.cachetier import CacheTier
+    from ceph_tpu_torch.osd.cluster import SimCluster
+
+    base = SimCluster(n_osds=SA_OSDS, pg_num=8, profile=PROFILE,
+                      chunk_size=OBJECT_SIZE // K, **entry_device(dev))
+    cache = SimCluster(n_osds=4, pg_num=2, profile="replicated size=2",
+                       **entry_device(dev))
+    tier = CacheTier(base, cache, target_max_bytes=TIER_TARGET,
+                     dirty_ratio=0.4, full_ratio=0.8)
+    flushes = []             # (objects, gf_apply encodes) each base write
+    base_write = base.write
+
+    def flush_write(objects) -> None:
+        n0 = G.apply_matrix_gf.launches
+        base_write(objects)
+        flushes.append((len(objects), G.apply_matrix_gf.launches - n0))
+    base.write = flush_write
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 151)
+    names = [f"tier_{i:03d}" for i in range(TIER_OBJECTS)]
+    rows = torch.randint(0, 256, (TIER_OBJECTS, OBJECT_SIZE),
+                         dtype=torch.uint8, device=dev,
+                         generator=gen).cpu().numpy()
+
+    def check(label: str, read) -> float:
+        t0 = time.perf_counter()
+        for i, name in enumerate(names):
+            if not np.array_equal(np.asarray(read(name)), rows[i]):
+                fail(f"phase 15: cache tier {label}: {name} differs")
+        return time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(0, TIER_OBJECTS, TIER_GROUP):
+        tier.write({names[j]: rows[j] for j in range(i, i + TIER_GROUP)})
+    t_write = time.perf_counter() - t0
+    mid = tier.stats()
+    t_read = check("read", tier.read)
+    t0 = time.perf_counter()
+    tier.flush_evict_all()
+    t_drain = time.perf_counter() - t0
+    t_base = check("base read after flush_evict_all", base.read)
+    stats = tier.stats()
+    encodes = sum(n for _objs, n in flushes)
+    if not flushes or encodes == 0 or mid["tier_evict"] == 0 \
+            or stats["objects"] != 0:
+        fail(f"phase 15: cache tier flushes {flushes}, stats {mid} then "
+             f"{stats}")
+    out = {"write_s": t_write, "read_s": t_read, "drain_s": t_drain,
+           "base_read_s": t_base, "flushes": flushes,
+           "encodes_per_flush": encodes / len(flushes),
+           "stats_after_writes": mid, "stats_after_drain": stats}
+    log(f"  cache tier: {TIER_OBJECTS} x {OBJECT_SIZE >> 20} MiB through "
+        f"a {TIER_TARGET >> 20} MiB writeback tier in {t_write:.3f} s "
+        f"({mid['tier_flush']} flushed, {mid['tier_evict']} evicted), read "
+        f"exact in {t_read:.3f} s, drained in {t_drain:.3f} s, read exact "
+        f"from the base in {t_base:.3f} s; {len(flushes)} base writes, "
+        f"(objects, gf_apply encodes) each {flushes}")
+    return out
+
+
+def runtime_path(torch, dev) -> dict:
+    """The EC runtime server behind the native shim: NativeReedSolomon
+    k=8 m=3 encodes RT_BATCH x 8 x 512 KiB and decodes shards 0 and 9
+    through the server on the card; the bytes must be the shim's own CPU
+    codec's, and the server must have served them with gf_apply (the
+    shim falls back to the CPU in C whenever the socket fails, so only
+    the counts show the card did the work)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch.native.server import ECRuntimeServer
+    from ceph_tpu_torch.ops import gf_kernel as G
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 152)
+    L = OBJECT_SIZE // K
+    data = torch.randint(0, 256, (RT_BATCH, K, L), dtype=torch.uint8,
+                         device=dev, generator=gen).cpu().numpy()
+    coder = native.NativeReedSolomon({"k": str(K), "m": str(M)},
+                                     device="cpu")
+    lost = list(LOST)
+    root = tempfile.mkdtemp(prefix="ec-rt-")
+    path = os.path.join(root, "ec.sock")
+    n0, s0 = gf_counts(G)
+    srv = ECRuntimeServer(path, **entry_device(dev)).start()
+    try:
+        native.set_runtime_socket(path)
+        try:
+            if not native.runtime_ping():
+                fail("phase 15: the runtime server answered no ping")
+            t0 = time.perf_counter()
+            parity = np.asarray(coder.encode_chunks(data))
+            t_enc = time.perf_counter() - t0
+            full = np.concatenate([data, parity], axis=1)
+            t0 = time.perf_counter()
+            rec = coder.decode_chunks(lost, {i: full[:, i]
+                                             for i in range(K + M)
+                                             if i not in lost})
+            t_dec = time.perf_counter() - t0
+        finally:
+            native.set_runtime_socket(None)
+        served, errors = srv.requests_handled, srv.errors
+    finally:
+        srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    n1, s1 = gf_counts(G)
+    t0 = time.perf_counter()
+    host = np.asarray(coder.encode_chunks(data))
+    t_host = time.perf_counter() - t0
+    if not np.array_equal(parity, host) or any(
+            not np.array_equal(np.asarray(rec[i]), full[:, i])
+            for i in lost):
+        fail("phase 15: the runtime server's bytes are not the CPU codec's")
+    shapes = s1 - s0
+    encodes = sum(n for (k, m, LL, _v), n in shapes.items()
+                  if (k, m, LL) == (K, M, L))
+    decodes = sum(n for (k, m, LL, _v), n in shapes.items()
+                  if k == K and m == len(lost) and LL == L)
+    if served < 3 or errors or encodes == 0 or decodes == 0:
+        fail(f"phase 15: the runtime server served {served} requests "
+             f"({errors} errors) with gf_apply launches "
+             f"{json.dumps(by_shape(shapes))}")
+    gb = RT_BATCH * K * L / 1e9
+    log(f"  runtime server: {served} requests through the native shim, "
+        f"encode {gb / t_enc:.3f} GB/s and decode {t_dec * 1e3:.1f} ms "
+        f"over the socket (the CPU codec's encode {gb / t_host:.3f} GB/s), "
+        f"bytes the CPU codec's; gf_apply {n1 - n0} launches "
+        f"{json.dumps(by_shape(shapes))}")
+    return {"requests_handled": served, "encode_gbps": gb / t_enc,
+            "decode_s": t_dec, "host_encode_gbps": gb / t_host,
+            "gf_apply_launches": n1 - n0}
+
+
+def procs_phase(torch, dev) -> tuple:
+    """Phase 15 with its launch counts set to 0 before and read after:
+    the children's own (their `launches` answers; a child's counts start
+    at 0 when it is spawned) and this process's (the thrasher, the cache
+    tier, the runtime server). Fails unless the children launched
+    gf_apply encodes, the 4 KiB delta and decodes, and CRC32C."""
+    from ceph_tpu_torch.ops import gf_kernel as G
+    t0 = time.perf_counter()
+    gf_set(G)
+    csum_set()
+    out, counts = procs_path(torch, dev)
+    n, shapes, csum, child_crc = child_launches(counts)
+    encodes = sum(k for (kk, m, _L, _v), k in shapes.items()
+                  if kk == K and m == M)
+    deltas = sum(k for (kk, m, L, _v), k in shapes.items()
+                 if kk < K and m == M and L == RBD_BLOCK)
+    if encodes == 0 or deltas == 0 or decode_launches(shapes) == 0 \
+            or csum["crc32c"] == 0:
+        fail(f"phase 15: the children launched gf_apply {n} times: "
+             f"encodes {encodes}, of the 4 KiB delta shape {deltas}, "
+             f"decodes {decode_launches(shapes)}; CRC32C {csum['crc32c']}")
+    out.update({"children_gf_apply_launches": n,
+                "children_gf_apply_encode_launches": encodes,
+                "children_gf_apply_delta_4k_launches": deltas,
+                "children_gf_apply_decode_launches": decode_launches(shapes),
+                "children_gf_apply_by_shape": by_shape(shapes),
+                "children_crc32c_launches": csum["crc32c"]})
+    log(f"  the children's launches: gf_apply {n} (encodes {encodes}, 4 "
+        f"KiB deltas {deltas}, decodes {decode_launches(shapes)}), by "
+        f"(k,m,L,vec) {json.dumps(by_shape(shapes))}; CRC32C "
+        f"{csum['crc32c']}")
+    out["thrasher"] = thrash_path(dev)
+    out["cache_tier"] = tier_path(torch, dev)
+    out["runtime_server"] = runtime_path(torch, dev)
+    own, own_shapes = gf_counts(G)
+    launches = n + own
+    all_shapes = shapes + own_shapes
+    crc = csum["crc32c"] + csum_counts()["crc32c"]
+    CRC_BY_SHAPE["phase 15"] = dict(sorted(
+        (child_crc + crc_shapes()).items(), key=lambda kv: -kv[1]))
+    out.update({"gf_apply_launches": launches,
+                "gf_apply_by_shape": by_shape(all_shapes),
+                "crc32c_launches": crc,
+                "phase_s": time.perf_counter() - t0})
+    log(f"  gf_apply launches in phase 15: {launches} ({n} in the "
+        f"children), by (k,m,L,vec): {json.dumps(by_shape(all_shapes))}; "
+        f"crc32c {crc}")
+    log(f"  phase 15 wall time {out['phase_s']:.1f} s; {card_line()}")
+    return out, launches, all_shapes, crc
 
 
 def build_all() -> Path:
@@ -3870,18 +4793,44 @@ def main() -> None:
         log(card_line())
         log(json.dumps({"standalone": standalone}))
         return
+    if sys.argv[1:] == ["--osd-procs"]:
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ceph_tpu_torch import native
+        from ceph_tpu_torch.csum import kernels as C
+        with ThreadPoolExecutor(3) as pool:
+            for job in [pool.submit(G.build), pool.submit(C.build),
+                        pool.submit(native.build, True)]:
+                job.result()
+        log("phase 15: one process an OSD on the card, the thrasher, the "
+            "workload engine, the cache tier and the runtime server")
+        procs = procs_phase(torch, dev)[0]
+        log(card_line())
+        log(json.dumps({"osd_procs": procs}))
+        return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: none, --gf-times, "
              f"--crc-times, --score-times [PARENT_PLACEMENT_CU], "
-             f"--client, --mesh or --standalone")
+             f"--client, --mesh, --standalone or --osd-procs")
+    # each phase's seconds, phase 1's from here on
+    seconds: dict = {}
+    started = ["1", time.perf_counter()]
+
+    def lap(name: str, msg: str) -> None:
+        """Close the running phase's seconds and open phase `name`."""
+        now = time.perf_counter()
+        seconds[started[0]] = now - started[1]
+        started[:] = [name, now]
+        log(msg)
+
     native_lib = build_all()
 
-    log("phase 2: kernels against their plain versions")
+    lap("2", "phase 2: kernels against their plain versions")
     gf_check = check_gf_kernel(torch, dev)
     csum_check = check_csum_kernels(torch, dev)
     score_check = check_score_kernel(torch, dev)
 
-    log("phase 3: main path")
+    lap("3", "phase 3: main path")
     gf_set(G)
     csum_set()
     ctx = main_path(torch, dev)
@@ -3892,11 +4841,11 @@ def main() -> None:
         fail("the main path never launched gf_apply")
     crc3 = crc_launches("phase 3")
 
-    log("phase 4: times")
+    lap("4", "phase 4: times")
     times = measure(torch, dev, ctx)
     enc = times["encode"]
 
-    log("phase 5: the PG backend path")
+    lap("5", "phase 5: the PG backend path")
     gf_set(G)
     csum_set()
     backend = backend_path(torch, dev)
@@ -3904,11 +4853,11 @@ def main() -> None:
     crc5 = backend["crc32c_launches"]
     log("backend " + json.dumps(backend))
 
-    log("phase 6: CRUSH placement at BASELINE config #5")
+    lap("6", "phase 6: CRUSH placement at BASELINE config #5")
     placement = placement_path(torch, dev)
     log("placement " + json.dumps(placement))
 
-    log("phase 7: the cluster's failure -> remap -> recovery path")
+    lap("7", "phase 7: the cluster's failure -> remap -> recovery path")
     gf_set(G)
     csum_set()
     cluster = cluster_path(torch, dev)
@@ -3920,7 +4869,7 @@ def main() -> None:
     crc7 = crc_launches("phase 7")
     log("cluster " + json.dumps(cluster))
 
-    log("phase 8: BASELINE configs #3 (LRC) and #4 (Clay), and SHEC, "
+    lap("8", "phase 8: BASELINE configs #3 (LRC) and #4 (Clay), and SHEC, "
         "through the PG backend")
     gf_set(G)
     csum_set()
@@ -3935,7 +4884,7 @@ def main() -> None:
     crc8 = crc_launches("phase 8")
     log("codecs " + json.dumps(codecs))
 
-    log("phase 9: BlueStore block checksums and streaming")
+    lap("9", "phase 9: BlueStore block checksums and streaming")
     gf_set(G)
     csum_set()
     t0 = time.perf_counter()
@@ -3945,13 +4894,13 @@ def main() -> None:
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
     log("bluestore " + json.dumps(bluestore))
 
-    log("phase 10: the upmap balancer at 10k OSDs / 1M PGs")
+    lap("10", "phase 10: the upmap balancer at 10k OSDs / 1M PGs")
     t0 = time.perf_counter()
     balancer = balancer_path(torch, dev)
     log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
     log("balancer " + json.dumps(balancer))
 
-    log("phase 11: the failure path over persistent TinStores")
+    lap("11", "phase 11: the failure path over persistent TinStores")
     gf_set(G)
     csum_set()
     t0 = time.perf_counter()
@@ -3965,19 +4914,27 @@ def main() -> None:
     crc11 = crc_launches("phase 11")
     log("store " + json.dumps(store))
 
-    log("phase 12: the client tier over the card's EC pool")
+    lap("12", "phase 12: the client tier over the card's EC pool")
     client, launches12, shapes12, crc12 = client_phase(torch, dev)
     log("client " + json.dumps(client))
 
-    log("phase 13: the (dp, shard) mesh on the cards")
+    lap("13", "phase 13: the (dp, shard) mesh on the cards")
     mesh = mesh_phase(torch)
     launches13 = mesh["launches"]
     log("mesh " + json.dumps({key: mesh[key] for key in
                               ("world", "seconds", "launches", "by_shape")}))
 
-    log("phase 14: the wire tier's daemons over the card's EC backend")
+    lap("14", "phase 14: the wire tier's daemons over the card's EC backend")
     standalone, launches14, shapes14, crc14 = standalone_phase(torch, dev)
     log("standalone " + json.dumps(standalone))
+
+    lap("15", "phase 15: one process an OSD on the card, the thrasher, the "
+        "workload engine, the cache tier and the runtime server")
+    procs, launches15, shapes15, crc15 = procs_phase(torch, dev)
+    log("osd_procs " + json.dumps(procs))
+    seconds[started[0]] = time.perf_counter() - started[1]
+    log(f"seconds by phase: {json.dumps(seconds)} (sum "
+        f"{sum(seconds.values()):.1f} s)")
     kernels = [{
         "name": "gf_apply",
         "route": "cuda",
@@ -3985,12 +4942,12 @@ def main() -> None:
         "replaces": "ceph_tpu/ops/pallas_gf.py:103",
         "launches": launches + launches5 + launches7 + launches8
         + launches9 + launches11 + launches12 + launches13
-        + launches14,
+        + launches14 + launches15,
         "launches_by_phase": {"3": launches, "5": launches5,
                               "7": launches7, "8": launches8,
                               "9": launches9, "11": launches11,
                               "12": launches12, "13": launches13,
-                              "14": launches14},
+                              "14": launches14, "15": launches15},
         "launches_by_shape": {"3": by_shape(shapes3),
                               "5": backend["gf_apply_by_shape"],
                               "7": by_shape(shapes7),
@@ -3998,7 +4955,8 @@ def main() -> None:
                               "11": by_shape(shapes11),
                               "12": by_shape(shapes12),
                               "13": mesh["by_shape"],
-                              "14": by_shape(shapes14)},
+                              "14": by_shape(shapes14),
+                              "15": by_shape(shapes15)},
         "max_abs_err": gf_check["max_abs_err"],
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -4015,7 +4973,7 @@ def main() -> None:
     csum = times["csum"]
     crc_phases = {"3": crc3, "5": crc5, "7": crc7, "8": crc8,
                   "9": by9["crc32c"], "11": crc11, "12": crc12,
-                  "14": crc14}
+                  "14": crc14, "15": crc15}
     for name, replaces, main_row, by_phase, extra in (
             ("crc32c", "ceph_tpu/csum/kernels.py:113", "crc32c_256x512KiB",
              crc_phases, tuple(k for k in csum if k.startswith("crc32c")

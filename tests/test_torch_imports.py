@@ -50,8 +50,69 @@ def test_port_has_the_slice_modules():
                  "auth.aead", "auth.cephx", "mgr.reports", "mgr.health",
                  "mgr.telemetry", "mgr.profiles", "mgr.netobs",
                  "osd.repairpolicy", "osd.pg_export", "msgr",
-                 "msgr.messenger", "osd.standalone"):
+                 "msgr.messenger", "osd.standalone", "osd.multiproc",
+                 "osd.cachetier", "native.server", "workload",
+                 "workload.profiles", "workload.streams", "workload.engine",
+                 "chaos", "chaos.thrasher"):
         assert f"ceph_tpu_torch.{name}" in mods, name
+
+
+# the twin's modules that have no file of the same path in the port, and
+# what takes their place
+NO_SAME_PATH = {
+    "ops/pallas_gf.py": "ops/csrc/gf_apply.cu, the Pallas kernel's port",
+    "utils/jax_cache.py": "utils/nvcc.py's build cache in _build/, one "
+                          "library per content of source and flags",
+}
+
+
+def test_every_twin_module_has_its_counterpart():
+    twin = ROOT / "ceph_tpu"
+    missing = sorted(
+        str(p.relative_to(twin)) for p in twin.rglob("*.py")
+        if "__pycache__" not in p.parts
+        and not (ROOT / "ceph_tpu_torch" / p.relative_to(twin)).is_file())
+    assert missing == sorted(NO_SAME_PATH)
+    assert (ROOT / "ceph_tpu_torch" / "ops" / "csrc" / "gf_apply.cu").is_file()
+    assert (ROOT / "ceph_tpu_torch" / "utils" / "nvcc.py").is_file()
+
+
+BAD_MODULES = (
+    "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+    "             or m.startswith(('jax.', 'jaxlib'))\n"
+    "             or m == 'ceph_tpu' or m.startswith('ceph_tpu.'))\n"
+    "print(json.dumps(bad))\n")
+
+
+def test_an_osd_child_process_loads_no_jax_and_no_ceph_tpu(tmp_path):
+    """`python -m ceph_tpu_torch.osd.multiproc` as a cluster spawns it:
+    its config line on stdin, a daemon built on the CPU, `ready` on
+    stdout, a `launches` answer, then EOF (the parent gone) ends it."""
+    cfg = {"osd_id": 0, "secret": None, "compress": None,
+           "profile": "plugin=tpu_rs k=2 m=1", "pg_num": 1,
+           "pool_size": 3, "pool_min_size": 2, "is_erasure": True,
+           "chunk_size": 256, "op_timeout": 8.0, "hb_interval": 0.25,
+           "hb_grace": 60.0, "admin_dir": str(tmp_path), "store": "mem",
+           "store_dir": None, "op_shards": 1, "msgr_workers": 1,
+           "msgr_uds": True, "mon_names": ["mon.0"], "osd_ids": [0],
+           "device": "cpu", "verbose": False}
+    code = ("import json, runpy, sys\n"
+            "try:\n"
+            "    runpy.run_module('ceph_tpu_torch.osd.multiproc',\n"
+            "                     run_name='__main__', alter_sys=True)\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n" + BAD_MODULES)
+    stdin = json.dumps(cfg) + "\n" + json.dumps({"cmd": "launches",
+                                                 "req": 1}) + "\n"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          input=stdin, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = [json.loads(x) for x in proc.stdout.strip().splitlines()]
+    assert lines[0]["event"] == "ready" and lines[0]["device"] == "cpu"
+    assert lines[1]["req"] == 1 and lines[1]["ok"]
+    assert lines[1]["launches"]["gf_apply"]["launches"] == 0
+    assert lines[-1] == []
 
 
 def test_importing_the_port_loads_no_jax_and_no_ceph_tpu(tmp_path):
@@ -59,11 +120,7 @@ def test_importing_the_port_loads_no_jax_and_no_ceph_tpu(tmp_path):
         "import importlib, json, sys\n"
         f"mods = {_port_modules()!r}\n"
         "for m in mods:\n"
-        "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-        "             or m.startswith(('jax.', 'jaxlib'))\n"
-        "             or m == 'ceph_tpu' or m.startswith('ceph_tpu.'))\n"
-        "print(json.dumps(bad))\n")
+        "    importlib.import_module(m)\n" + BAD_MODULES)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -375,12 +375,6 @@ def test_cluster_without_a_device_raises_without_cuda(monkeypatch):
         TS.StandaloneCluster(n_osds=3, pg_num=1)
 
 
-def test_osd_procs_is_refused():
-    with pytest.raises(NotImplementedError, match="multiproc"):
-        TS.StandaloneCluster(n_osds=3, pg_num=1, osd_procs=True,
-                             device="cpu")
-
-
 def test_heartbeats_survive_a_slow_start(monkeypatch):
     """Daemons that take longer to build than a heartbeat interval (as
     on a card) keep their heartbeat threads: the roster is empty, not
@@ -397,5 +391,86 @@ def test_heartbeats_survive_a_slow_start(monkeypatch):
         time.sleep(0.3)
         assert all(d._hb.is_alive() for d in c.osds.values())
         assert all(m._hb.is_alive() for m in c.mons)
+    finally:
+        c.shutdown()
+
+
+def _homeless_client(c, homeless_calls, **run_kw):
+    """A client of `c` whose first `homeless_calls` primary lookups find
+    no primary (as while a live primary is marked down), and whose
+    _run_ops takes `run_kw`."""
+    cl = c.client()
+    primary, run = cl._primary, cl._run_ops
+    calls = {"n": 0}
+
+    def lookup(ps):
+        calls["n"] += 1
+        if calls["n"] <= homeless_calls:
+            raise ConnectionError(f"pg 1.{ps} has no acting primary")
+        return primary(ps)
+    cl._primary = lookup
+    cl._run_ops = lambda ops, **kw: run(ops, **run_kw)
+    return cl, calls
+
+
+def test_homeless_ops_wait_for_a_map_with_a_primary():
+    """An op whose PG has no primary in the client's map for more rounds
+    than its retry budget waits for a map with one (the Objecter's
+    homeless ops) instead of failing; the write and the read are exact."""
+    c = TS.StandaloneCluster(n_osds=3, pg_num=1, device="cpu")
+    try:
+        c.wait_for_clean(timeout=60)
+        cl, calls = _homeless_client(c, 20, retries=5, retry_sleep=0.01)
+        cl.write({"o": b"x" * 3000})
+        assert calls["n"] > 20
+        assert cl.read("o") == b"x" * 3000
+    finally:
+        c.shutdown()
+
+
+def test_homeless_ops_fail_once_the_map_stalls():
+    """A PG that stays without a primary while no newer map comes fails
+    its op within the retry budget once `timeout` has passed."""
+    c = TS.StandaloneCluster(n_osds=3, pg_num=1, device="cpu")
+    try:
+        c.wait_for_clean(timeout=60)
+        cl, calls = _homeless_client(c, 10 ** 9, timeout=0.2, retries=3,
+                                     retry_sleep=0.01)
+        t0 = time.monotonic()
+        with pytest.raises(ConnectionError, match="no acting primary"):
+            cl.write({"o": b"x" * 3000})
+        assert time.monotonic() - t0 < 10
+        assert calls["n"] > 3
+    finally:
+        c.shutdown()
+
+
+def test_a_shard_that_missed_writes_while_suspected_catches_up():
+    """A write acked while a live member was suspected skips its shard.
+    Once the suspicion clears, the primary replays the missed objects
+    onto it and only then reports the PG clean; a deep scrub then reads
+    every shard."""
+    c = TS.StandaloneCluster(n_osds=4, pg_num=1, device="cpu")
+    try:
+        c.wait_for_clean(timeout=60)
+        cl = c.client()
+        cl.write({"a": b"a" * 3000})
+        prim = next(d for d in c.osds.values() if 0 in d.backends)
+        be = prim.backends[0]
+        slot = 1
+        other = be.acting[slot]
+        with prim._lock:
+            prim.suspect.add(other)
+        cl.write({"b": b"b" * 2000, "a": b"c" * 1000})
+        assert be.shard_applied[slot] < be.pg_log.head
+        with prim._lock:
+            prim.suspect.discard(other)
+        c.wait_for_clean(timeout=60)
+        assert be.shard_applied[slot] == be.pg_log.head
+        assert cl.read_many(["a", "b"]) == {"a": b"c" * 1000,
+                                            "b": b"b" * 2000}
+        rep = cl.deep_scrub(0)
+        assert rep["inconsistent"] == []
+        assert rep["checked"] == 2 * be.n
     finally:
         c.shutdown()

@@ -39,7 +39,9 @@ COPIES = ["utils/perf_counters.py", "utils/profiler.py",
           "auth/__init__.py", "auth/aead.py", "auth/cephx.py",
           "mgr/reports.py", "mgr/health.py", "mgr/telemetry.py",
           "mgr/profiles.py", "mgr/netobs.py", "osd/repairpolicy.py",
-          "osd/pg_export.py", "msgr/__init__.py", "msgr/messenger.py"]
+          "osd/pg_export.py", "msgr/__init__.py", "msgr/messenger.py",
+          "workload/__init__.py", "workload/profiles.py",
+          "workload/streams.py", "workload/engine.py", "osd/cachetier.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
