@@ -36,6 +36,7 @@ line for line; tests/test_torch_placement.py holds the results equal.
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 import time
 from dataclasses import dataclass, field
@@ -529,29 +530,39 @@ def batch_calc_pg_upmaps(osdmap, pool_id: int, max_deviation: int = 1,
 
         moved_pgs: set[int] = set()
         accepted = 0
-        for ci in np.argsort(-score[:, 0]):
-            if not np.isfinite(score[ci, 0]):
+        # the walk below visits up to N candidates one at a time: it
+        # reads Python lists (the same float64 and float32 values, so
+        # the same comparisons) where numpy's scalar indexing would
+        # cost ten times as much a step; devl follows dev
+        order = np.argsort(-score[:, 0]).tolist()
+        score_l, best_l = score.tolist(), best.tolist()
+        pg_l, src_l, dsts_l = pg_idx.tolist(), src_arr.tolist(), \
+            dsts.tolist()
+        devl = dev.tolist()
+        for ci in order:
+            row = score_l[ci]
+            if not math.isfinite(row[0]):
                 break
             if max_movement is not None \
                     and res.budget_used >= max_movement:
                 break
-            ps = int(pg_idx[ci])
+            ps = pg_l[ci]
             if ps in moved_pgs:
                 continue
-            src = int(src_arr[ci])
+            src = src_l[ci]
             # devs moved under us this round: walk this candidate's
             # ranked legal targets for the first whose gain survives.
             # Sign guards keep the movement budget honest: a shard
             # must leave a device still ABOVE target for one still
             # BELOW it, so every accepted move shrinks sum|dev|
-            if dev[src] <= 0:
+            if devl[src] <= 0:
                 continue
             dst = -1
             for k in range(topk):
-                if not np.isfinite(score[ci, k]):
+                if not math.isfinite(row[k]):
                     break
-                cand = int(dsts[best[ci, k]])
-                if dev[cand] < 0 and dev[src] - dev[cand] > 1.0:
+                cand = dsts_l[best_l[ci][k]]
+                if devl[cand] < 0 and devl[src] - devl[cand] > 1.0:
                     dst = cand
                     break
             if dst < 0:
@@ -580,6 +591,7 @@ def batch_calc_pg_upmaps(osdmap, pool_id: int, max_deviation: int = 1,
             load[dst] += 1
             dev[src] = load[src] - expected[src]
             dev[dst] = load[dst] - expected[dst]
+            devl[src], devl[dst] = float(dev[src]), float(dev[dst])
         res.rounds += 1
         if accepted == 0:
             break

@@ -97,15 +97,17 @@ def ec_perf_counters():
                              "fused encode+crc single launches")
             .add_u64_counter("host_encode_launches",
                              "write-path encodes served by the native "
-                             "host codec (not ported yet; stays 0)")
+                             "SSE codec + hardware crc32c (CPU "
+                             "backend only — bit-identical to the "
+                             "fused device launch)")
             .add_u64_counter("decode_launches",
                              "read-path decode launches")
             .add_u64_counter("recover_launches",
                              "fused recovery launches")
             .add_u64_counter("program_cache_hits",
-                             "device-program cache hits")
+                             "compiled-program cache hits")
             .add_u64_counter("program_cache_misses",
-                             "device-program cache builds")
+                             "compiled-program cache compiles")
             .add_u64_counter("encode_bytes", "logical bytes encoded")
             .add_u64_counter("decode_bytes", "logical bytes decoded")
             .add_u64_counter("recovered_objects",
@@ -136,10 +138,10 @@ def ec_perf_counters():
             .add_time_avg("decode_time", "read-path decode wall time",
                           hist=True)
             .add_time_avg("recover_stage_time",
-                          "recovery host staging into pinned buffers")
+                          "recovery host staging (producer thread)")
             .add_time_avg("recover_launch_time",
-                          "recovery upload + launch enqueue + async "
-                          "D2H start", hist=True)
+                          "recovery launch enqueue + async D2H start",
+                          hist=True)
             .add_time_avg("recover_fetch_time",
                           "blocking remainder of the D2H fetch "
                           "(overlap eats the rest)")
@@ -149,7 +151,8 @@ def ec_perf_counters():
                              "partial-stripe overwrites served by the "
                              "parity-delta fast path")
             .add_u64_counter("rmw_delta_launches",
-                             "fused delta-encode launches")
+                             "fused delta-encode launches (device or "
+                             "native host)")
             .add_u64_counter("rmw_wire_bytes",
                              "journal + delta payload bytes shipped "
                              "to participating shards (the RMW "
@@ -159,13 +162,18 @@ def ec_perf_counters():
                              "construction (zero on the append path)")
             .add_u64_counter("rmw_fetch_waves",
                              "combined RMW prepare-fetch waves (one "
-                             "per delta group)")
+                             "per delta group: hinfo attrs + pre-"
+                             "image ranges gathered in a single "
+                             "overlapped round trip)")
             .add_u64_counter("rmw_fetch_frames",
                              "prepare-fetch frames issued (one per "
-                             "participant shard per wave)")
+                             "participant shard per wave — the 1+m "
+                             "sequential getattrs + per-span reads "
+                             "these replaced counted 1 frame each)")
             .add_u64_counter("rmw_shard_ios",
                              "participating shards per RMW op, summed "
-                             "(1 data + m parity on the fast path)")
+                             "(the shard-IO amplification counter: "
+                             "1 data + m parity on the fast path)")
             .add_u64_counter("rmw_full_fallbacks",
                              "RMW jobs laddered to the full-stripe "
                              "path (degraded/stale stripe, stripe-"
@@ -183,6 +191,12 @@ def ec_perf_counters():
                              "full-path shard write bytes shipped "
                              "(the full-stripe amplification "
                              "numerator the RMW ratio divides by)")
+            .add_u64_counter("stream_launches",
+                             "StreamingCodec tile launches")
+            .add_u64_counter("stream_bytes",
+                             "bytes streamed through tiled encode")
+            .add_time_avg("stream_drain_time",
+                          "StreamingCodec blocking drain remainder")
             .create_perf_counters())
 
 

@@ -1500,7 +1500,11 @@ class OSDDaemon:
         self.suspect: set[int] = set()            # osd ids (local view)
         self._lock = threading.RLock()
         self._store_lock = threading.Lock()
-        self._last_pong: dict[int, float] = {}
+        # per peer, when the oldest ping still unanswered went out
+        # (ref: OSD::heartbeat_check's ping_history): a peer fails on
+        # an unanswered ping older than the grace, so a heartbeat
+        # thread that stalled itself (sent nothing) judges no peer
+        self._ping_unacked: dict[int, float] = {}
         # per-peer store-op round-trip EWMA (seconds): the repair
         # planner's per-helper read costs — suspects and slow peers
         # rank behind fast trusted ones instead of uniform-cost picks
@@ -2665,9 +2669,13 @@ class OSDDaemon:
         # revived OSD's second death would never reach the mon)
         now = time.monotonic()
         for osd in self.c.osd_ids():
+            if osd != self.osd_id and not self.osdmap.osd_up[osd]:
+                # no pings go to a down peer: its next life starts a
+                # fresh unanswered-ping clock
+                self._ping_unacked.pop(osd, None)
             if osd != self.osd_id and self.osdmap.osd_up[osd]:
                 if osd in self._reported or osd in self.suspect:
-                    self._last_pong[osd] = now
+                    self._ping_unacked.pop(osd, None)
                 self._reported.discard(osd)
                 self.suspect.discard(osd)
         # r17: fold the committed liveness into the repair policy's
@@ -2876,6 +2884,8 @@ class OSDDaemon:
                 except (ValueError, ConnectionError, KeyError) as e:
                     self.c.log(f"{self.name}: pg 1.{ps} recovery "
                                f"retry deferred: {e}")
+                    if isinstance(e, ValueError):
+                        self._unsuspect_helpers(ps, be, rnd.lost_of(ps))
             if ps not in self._recovering:
                 self._catch_up_lagging(ps, be, new_plans)
         if be.acting != acting:
@@ -3002,6 +3012,29 @@ class OSDDaemon:
             except (ValueError, ConnectionError, KeyError) as e:
                 self.c.log(f"{self.name}: pg 1.{ps} recovery "
                            f"deferred: {e}")
+                if isinstance(e, ValueError):
+                    self._unsuspect_helpers(ps, be, lost)
+
+    def _unsuspect_helpers(self, ps: int, be, lost) -> None:
+        """A rebuild that found too few helpers while it excluded peers
+        the map holds up only because this daemon suspects them: clear
+        those suspicions, so that the next reconcile (a heartbeat's,
+        within a second) plans with them, as the metadata gather's
+        starved quorum does. Suspicion from a store op that timed out
+        under load otherwise stands until the next map epoch, and once
+        the maps go quiet the PG never recovers; a peer that really is
+        unreachable fails the round's fetch instead, until the
+        monitors mark it down. Caller holds self._lock and the PG
+        lock."""
+        n_osds = len(self.osdmap.osd_up)
+        cleared = sorted(
+            o for s, o in enumerate(be.acting)
+            if s not in lost and o != self.osd_id and o in self.suspect
+            and _valid_osd(o, n_osds) and self.osdmap.osd_up[o])
+        if cleared:
+            self.suspect.difference_update(cleared)
+            self.c.log(f"{self.name}: pg 1.{ps} rebuild short of "
+                       f"helpers: suspicion of up {cleared} cleared")
 
     def _revive_recheck(self, ps: int, be, revived: set[int],
                         new_plans: list) -> None:
@@ -4322,7 +4355,7 @@ class OSDDaemon:
     def _on_pong(self, peer: str, msg: MOSDPingReply) -> None:
         if peer.startswith("osd."):
             now = time.monotonic()
-            self._last_pong[int(peer[4:])] = now
+            self._ping_unacked.pop(int(peer[4:]), None)
             # r22: the reply echoes OUR monotonic send stamp, so the
             # round trip needs no wire change and no clock agreement
             # (even cross-process CLOCK_MONOTONIC is one clock here).
@@ -4449,7 +4482,7 @@ class OSDDaemon:
                     # grow the lossless queue without bound and flood
                     # the peer with stale pings on revive
                     continue
-                self._last_pong.setdefault(osd, now)
+                self._ping_unacked.setdefault(osd, time.monotonic())
                 try:
                     # stamp per send, not per sweep: an injected link
                     # delay sleeps THIS thread before the transmit, so
@@ -4460,7 +4493,12 @@ class OSDDaemon:
                                    MOSDPing(time.monotonic()))
                 except (KeyError, OSError, ConnectionError):
                     pass
-                stale = now - self._last_pong[osd] \
+                # silence counts from the oldest unanswered ping, not
+                # from the last reply: a beat that came late (this
+                # thread blocked on a PG lock behind a recovery batch,
+                # a starved process) sent no pings, and its peers'
+                # quiet then is ours, not theirs
+                stale = now - self._ping_unacked.get(osd, now) \
                     > self.config["osd_heartbeat_grace"]
                 if stale and osd not in self._reported:
                     self._reported.add(osd)
@@ -4675,7 +4713,7 @@ class OSDDaemon:
         fresh._interval_start = {}
         fresh._last_acting = {}
         fresh.suspect = set()
-        fresh._last_pong = {}
+        fresh._ping_unacked = {}
         fresh._peer_lat = {}
         fresh._client_lat = {}
         fresh._reported = set()

@@ -121,8 +121,8 @@ Phases, each of which fails loudly (exit code 1, no result line):
      through IoCtx.aio_write_full (traced for the device's idle share)
      and aio_read, 16 in flight; a 1 GiB RBD image at Ceph's default
      layout (order 22, stripe_count 1) written whole in 4 MiB writes,
-     then 2,048 fio-style random 4 KiB writes at 4 KiB-aligned seeded
-     offsets with snap_create after 1,024 and, after 1,536, the primary
+     then 1,024 fio-style random 4 KiB writes at 4 KiB-aligned seeded
+     offsets with snap_create after 512 and, after 768, the primary
      OSD of a PG holding image objects killed: reads in the gap served
      degraded (op_degraded, decode launches), the map marks it down and
      later ops retarget (op_resend); the head and the snapshot read
@@ -162,10 +162,10 @@ Phases, each of which fails loudly (exit code 1, no result line):
      SA_GRACE, SA_KILL_GRACE from the kill on, and no cephx: see
      SA_CEPHX), pg_num 32 of RS k=8 m=3 over 512 KiB chunks, every
      interaction a frame on the Messenger, every encode, delta, decode
-     and CRC on the card: 64 x 4 MiB objects written 16 at a time
+     and CRC on the card: 32 x 4 MiB objects written 16 at a time
      (traced for the device's idle share) and read back with read_many,
-     64 seeded 4 KiB write_at overwrites (the parity delta over
-     rmw_fetch frames), an OSD holding shards killed, 32 degraded reads
+     16 seeded 4 KiB write_at overwrites (the parity delta over
+     rmw_fetch frames), an OSD holding shards killed, 8 degraded reads
      (of objects whose primary lives), wait_for_down, wait_for_clean
      (120 s; recovery staged from readv frames), every byte read again
      against a host model and a deep scrub of every PG. Prints write
@@ -184,9 +184,9 @@ Phases, each of which fails loudly (exit code 1, no result line):
      the next of SP_GRACES after a boot that storms (a live OSD marked
      down+out, PGs not clean in 120 s, an OSD without its osd ticket
      after 40 s), every child on the cluster's device, every PG clean
-     and one config epoch folded without a suspect; (b) 256 x 4 MiB
+     and one config epoch folded without a suspect; (b) 128 x 4 MiB
      written 16 at a time (the card's utilization sampled by nvidia-smi
-     meanwhile, each child's CPU seconds from /proc), read back, 256
+     meanwhile, each child's CPU seconds from /proc), read back, 128
      seeded 4 KiB write_at overwrites, a SIGKILL of an OSD holding
      shards, its down mark and recovery by the survivors, every byte
      read again against a host model, a deep scrub of every PG (every
@@ -207,10 +207,33 @@ Phases, each of which fails loudly (exit code 1, no result line):
      encodes 8 x 8 x 512 KiB and decodes shards 0 and 9 through it,
      the bytes the shim's own CPU codec's and the server's gf_apply
      launches counted (the shim falls back to the CPU in C on any
-     socket failure).
-Phases 3, 5, 7, 8, 9, 11, 12, 14 and 15 print the CRC32C kernel's launches
-and fail if there are none; phase 9 also needs XXH32, XXH64 and gf_apply
-launches, phase 10 a scorer launch a round.
+     socket failure); (h) phase 16's live ceph commands (TOOLS_LIVE)
+     over this cluster's admin sockets, before its shutdown;
+ 16. the operator tools (ceph_tpu_torch/tools/), each through its
+     main(argv) in this process with no --device (the card): crushtool
+     --test at its own 10,000-OSD example (100,000 inputs, 11
+     replicas, two OSDs out), the first 2,000 inputs the --oracle's
+     (six `python -m` processes on the CPU, overlapping the rest of the
+     phase), the map through -o, -d and -c unchanged; osdmaptool --createsimple 10000 --pool-pgs
+     65536, --test-map-pgs, --upmap in batch mode with --save (a
+     scorer launch a round), and a 1,000-OSD map's upmap file the
+     plain (CPU) path's; rados put/ls/stat/get/rm of 16 x 4 MiB, every
+     get exact, and one put as `python -X importtime -m` (beside the
+     rest) that loads no JAX and reads back exact;
+     rbd: a 256 MiB image, 64 MiB imported, snap, protect, clone,
+     flatten, exports and diffs against a host model;
+     ceph-objectstore-tool demo and inspect, then fsck of every
+     TinStore of phase 11's cluster shape after 16 x 4 MiB; the ceph
+     CLI's status, df, pg stat, balancer and tier at phase 7's
+     cluster, and the live commands of phase 15 (h); the thrash
+     reproducer (seed 42, TinStores, one round), its schedule's sha256
+     the twin's. Logs each tool's host seconds; fails on a non-zero
+     exit, a read that differs, or no launch of gf_apply, CRC32C or
+     the scorer.
+Phases 3, 5, 7, 8, 9, 11, 12, 14, 15 and 16 print the CRC32C kernel's
+launches and fail if there are none; phase 9 also needs XXH32, XXH64 and
+gf_apply launches, phase 10 a scorer launch a round, phase 16 gf_apply
+and scorer launches.
 Phase 4 also times the checksum kernels at the main path's shapes
 (CRC32C over 256 and 352 rows of 512 KiB, the fused write's and the
 recovery program's launches of two row sets, the RMW delta's 4093-byte
@@ -286,6 +309,12 @@ results.
     python3 chip_smoke.py --osd-procs
 
 does the same for phase 15.
+
+    python3 chip_smoke.py --tools
+
+builds every kernel and the native library and runs phase 16 alone (its
+live commands over a StandaloneCluster of 8 OSDs booted for them), with
+its gates, then prints the card and one JSON object of its results.
 The full run logs each phase's seconds before its kernels line. The
 line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
@@ -295,6 +324,7 @@ It imports nothing of JAX and nothing of ceph_tpu, and needs one card.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import json
@@ -349,7 +379,7 @@ RADOS_OBJECTS = 256
 RADOS_INFLIGHT = 16
 RBD_IMAGE = 1 << 30
 RBD_OBJECT = 1 << 22
-RBD_RANDOM = 2048
+RBD_RANDOM = 1024
 RBD_BLOCK = 4096
 FS_FILE = 256 << 20
 FS_WRITE = 4 << 20
@@ -361,11 +391,11 @@ RGW_PART = 8 << 20
 MESH_OBJECTS = 32            # phase 13: objects a dp row
 SA_OSDS = 12                 # phase 14: the standalone cluster
 SA_PGS = 32
-SA_OBJECTS = 64              # 256 MiB: phase 15 writes the full GiB
+SA_OBJECTS = 32              # 128 MiB: phase 15 writes 512 MiB
 SA_INFLIGHT = 16             # op_window: rados bench -t 16
 SA_OP_TIMEOUT = 3.0          # tools/rados_bench.py's standalone writes
-SA_RANDOM = 64               # 4 KiB write_at overwrites
-SA_DEGRADED = 32
+SA_RANDOM = 16               # 4 KiB write_at overwrites
+SA_DEGRADED = 8
 # 12 daemons in one process, the JAX package's alike (PERF.md PR 12):
 # they miss the 1.2 s default heartbeat grace at boot, so the phase
 # writes and reads under SA_GRACE and kills under SA_KILL_GRACE, Ceph's
@@ -381,8 +411,8 @@ SA_CEPHX = False
 # booted at the JAX package's default heartbeat grace first, then at the
 # next of these graces after each boot that storms (a live OSD marked
 # down, a PG not clean, an OSD without its osd ticket)
-SP_OBJECTS = 256
-SP_RANDOM = 256
+SP_OBJECTS = 128             # 512 MiB (cut from 1 GiB for the time limit)
+SP_RANDOM = 128
 SP_GRACES = (1.2, 5.0, 20.0, 60.0)
 SP_SETTLE = 5.0              # seconds watched for false down marks
 SP_KILL_GRACE = 8.0          # the least grace the kill and recovery run at
@@ -394,6 +424,29 @@ TIER_OBJECTS = 64
 TIER_TARGET = 64 << 20       # target_max_bytes: a quarter of the objects
 TIER_GROUP = 4               # objects a tier.write
 RT_BATCH = 8                 # objects of the runtime server's encode
+# phase 16: the operator tools (ceph_tpu_torch/tools/), at the sizes of
+# the tools' own examples or of phase 7's cluster
+TOOLS_CRUSH = ["--build", "--num-osds", "10000", "--test", "--rule", "ec",
+               "--num-rep", "11", "--mark-out", "0,17"]
+TOOLS_CRUSH_X = 100_000       # crushtool's own 10,000-OSD example
+TOOLS_ORACLE_X = 2_000        # inputs also run through --oracle
+TOOLS_ORACLE_PROCS = 6        # oracle slices, one `python -m` each
+TOOLS_OSDMAP = ["--createsimple", "10000", "--pool-pgs", "65536"]
+# the upmap file of the card and of the plain (CPU) path, from one map
+TOOLS_OSDMAP_PLAIN = ["--createsimple", "1000", "--pool-pgs", "8192"]
+TOOLS_RADOS_OBJECTS = 16      # x OBJECT_SIZE through rados put/get
+TOOLS_RBD_IMAGE = "256M"
+TOOLS_RBD_IMPORT = 64 << 20
+TOOLS_CLI = ["--num-osds", str(CLUSTER_OSDS), "--pg-num", str(CLUSTER_PGS)]
+TOOLS_STORE_OBJECTS = 16      # phase 11's cluster shape, 16 x 4 MiB
+TOOLS_THRASH = ["--seed", "42", "--store", "tin", "--rounds", "1",
+                "--repro"]
+# the twin's schedule for TOOLS_THRASH (its tools/thrash.py on the CPU,
+# held in tests/test_torch_tools_cli.py), less "parked" lines
+TOOLS_THRASH_SHA = \
+    "2a00c41c4904d0984149ff726f21ecf4fc118e2d7123f1fc05dcf7148855fdc0"
+TOOLS_LIVE = (["status"], ["health", "detail"], ["prometheus"],
+              ["daemon", "osd.0", "perf", "dump"], ["trace"])
 
 LRC_PROFILE = "plugin=lrc k=8 m=4 l=4"
 CLAY_PROFILE = "plugin=clay k=8 m=4 d=11"
@@ -3568,6 +3621,13 @@ def suspects(c) -> dict:
             if d.suspect}
 
 
+def downs(c) -> dict:
+    """The OSDs each running OSD daemon's map holds down."""
+    return {d.name: [o for o, up in enumerate(d.osdmap.osd_up) if not up]
+            for d in c.osds.values()
+            if not d._stop.is_set() and d.osdmap is not None}
+
+
 def unclean_pgs(c) -> dict:
     """Why each PG of the in-process cluster `c` is not clean yet, by
     wait_for_clean's tests: no live primary in its map, no backend, a
@@ -3641,9 +3701,10 @@ def standalone_run(torch, dev, c, frames, t_phase) -> dict:
         if time.monotonic() > t_end:
             fail("phase 14: daemon_profile_hz 0 not folded by every OSD")
         time.sleep(0.05)
+    out["boot_s"] = time.perf_counter() - t_phase
     log(f"  started: every PG clean, epoch "
         f"{min(d.osdmap.epoch for d in c.osds.values())}, suspects "
-        f"{suspects(c)}")
+        f"{suspects(c)}, {out['boot_s']:.1f} s into the phase")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 14)
     names = [f"sa_{i:04d}" for i in range(SA_OBJECTS)]
@@ -3785,8 +3846,17 @@ def standalone_run(torch, dev, c, frames, t_phase) -> dict:
     t_deg = time.perf_counter() - t0
     # the down mark waits for two reporters and a Paxos commit among 12
     # in-process daemons on one host: a generous budget
-    c.wait_for_down(victim, timeout=240)
-    c.wait_for_clean(timeout=120)
+    try:
+        c.wait_for_down(victim, timeout=240)
+        c.wait_for_clean(timeout=120)
+        out["kill_to_clean_wait_s"] = time.perf_counter() - t_kill
+    except TimeoutError:
+        # which PGs hold out and why, what each live daemon suspects
+        # and which OSDs its map holds down
+        log(f"  after osd.{victim}'s kill: PGs not clean "
+            f"{unclean_pgs(c)}; suspects {suspects(c)}; down in each "
+            f"live daemon's map {downs(c)}")
+        raise
     stop.set()
     watcher.join(5)
     recovered = sum(d.ec_perf.get("recovered_objects")
@@ -3813,7 +3883,8 @@ def standalone_run(torch, dev, c, frames, t_phase) -> dict:
         f"{out['recovered_objects_s']:.1f} objects/s, the last "
         f"{t_clean - t_down:.3f} s after the down mark, from "
         f"{dict(frames)} readv frames, "
-        f"recover_wire_bytes {wire}")
+        f"recover_wire_bytes {wire}; wait_for_clean returned "
+        f"{out['kill_to_clean_wait_s']:.3f} s after the kill")
 
     # -- everything again, then a deep scrub of every PG ----------------
     t_reread = read_all("read after recovery")
@@ -4455,6 +4526,9 @@ def procs_path(torch, dev) -> tuple:
             fail(f"phase 15: every heartbeat grace of {SP_GRACES} storms")
         out, counts = procs_run(torch, dev, c, marks, boot["grace_s"])
         out["boots"] = boots
+        log("  phase 16's live ceph commands over this cluster's admin "
+            "sockets, before its shutdown:")
+        out["live_cli"] = live_cli(c.admin_dir)
         return out, counts
     finally:
         if c is not None:
@@ -4684,6 +4758,464 @@ def procs_phase(torch, dev) -> tuple:
     return out, launches, all_shapes, crc
 
 
+# ------------------------------------------------------------ phase 16
+
+class ToolRun:
+    """The port's operator tools as a user runs them: each call is the
+    tool's `main(argv)` in this process (so the kernels' launch counts
+    count here) with its stdout captured; the host seconds of the calls
+    are summed by tool. A non-zero exit fails the phase."""
+
+    def __init__(self):
+        self.seconds = collections.Counter()
+        self.calls = collections.Counter()
+
+    def __call__(self, name: str, argv: list) -> str:
+        import importlib
+        import io
+        mod = importlib.import_module(f"ceph_tpu_torch.tools.{name}")
+        argv = [str(a) for a in argv]
+        out = io.TextIOWrapper(io.BytesIO(), encoding="utf-8",
+                               write_through=True)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                code = mod.main(argv) or 0
+        except SystemExit as e:
+            code = 0 if e.code is None else e.code
+        self.seconds[name] += time.perf_counter() - t0
+        self.calls[name] += 1
+        text = out.buffer.getvalue().decode(errors="replace")
+        if code != 0:
+            fail(f"phase 16: {name} {' '.join(argv)} exited {code!r}: "
+                 f"{text[-2000:]}")
+        return text
+
+
+def module_env(root: Path) -> dict:
+    """The environment of a `python -m ceph_tpu_torch...` child: this
+    checkout first on its path."""
+    path = [str(root)] + [p for p in os.environ.get(
+        "PYTHONPATH", "").split(os.pathsep) if p]
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(path))
+
+
+def start_oracle() -> dict:
+    """crushtool --oracle over the first TOOLS_ORACLE_X inputs of
+    TOOLS_CRUSH (host code: `python -m` a slice on the CPU), for phase
+    16 to hold its card mappings to. The full run starts it with phase
+    10, whose host work is one thread, so that it is done by phase 16;
+    phase 16 alone starts it first."""
+    root = Path(__file__).resolve().parent
+    step = -(-TOOLS_ORACLE_X // TOOLS_ORACLE_PROCS)
+    oracle = {"procs": [], "t0": time.perf_counter()}
+    try:
+        for lo in range(0, TOOLS_ORACLE_X, step):
+            hi = min(lo + step, TOOLS_ORACLE_X)
+            oracle["procs"].append(subprocess.Popen(
+                [sys.executable, "-m", "ceph_tpu_torch.tools.crushtool",
+                 "--device", "cpu", *TOOLS_CRUSH, "--min-x", str(lo),
+                 "--max-x", str(hi), "--show-mappings", str(hi - lo),
+                 "--no-show-statistics", "--oracle"],
+                cwd=root, env=module_env(root), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+    except BaseException:
+        stop_procs(oracle["procs"])
+        raise
+    return oracle
+
+
+def start_module_run(tmp: Path) -> tuple:
+    """One `python -X importtime -m ceph_tpu_torch.tools.rados_cli` put
+    on the card, beside the rest of phase 16; returns the child and the
+    object it puts."""
+    import numpy as np
+    root = Path(__file__).resolve().parent
+    payload = np.random.default_rng(SEED + 162).integers(
+        0, 256, OBJECT_SIZE, np.uint8).tobytes()
+    (tmp / "sub.in").write_bytes(payload)
+    child = subprocess.Popen(
+        [sys.executable, "-X", "importtime", "-m",
+         "ceph_tpu_torch.tools.rados_cli", "--state", str(tmp / "sub.st"),
+         "put", "sub", str(tmp / "sub.in")],
+        cwd=root, env=module_env(root), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return child, payload
+
+
+def stop_procs(procs: list) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def check_background(run, oracle: dict, child, payload: bytes,
+                     sample: list, tmp: Path) -> dict:
+    """The oracle's mappings must be the card's `sample`; the `python
+    -m` put must exit 0 having imported no jax* and no ceph_tpu*
+    module, and its object must read back exact in this process."""
+    lines = []
+    for p in oracle["procs"]:
+        out, err = p.communicate(timeout=900)
+        if p.returncode != 0:
+            fail(f"phase 16: crushtool --oracle exited {p.returncode}: "
+                 f"{err[-2000:]}")
+        lines += out.splitlines()
+    oracle_s = time.perf_counter() - oracle["t0"]
+    if lines != sample:
+        bad = next((i for i, (a, b) in enumerate(zip(lines, sample))
+                    if a != b), min(len(lines), len(sample)))
+        fail(f"phase 16: crushtool's mapping {bad} is not the oracle's "
+             f"({len(sample)} and {len(lines)} lines): "
+             f"{sample[bad:bad + 1]} vs {lines[bad:bad + 1]}")
+    out, err = child.communicate(timeout=600)
+    loaded = [line.rsplit("|", 1)[-1].strip() for line in err.splitlines()
+              if line.startswith("import time:")]
+    bad = sorted({m for m in loaded if m == "jax" or m.startswith(
+        ("jax.", "jaxlib", "ceph_tpu.")) or m == "ceph_tpu"})
+    if child.returncode != 0 or bad or not loaded:
+        fail(f"phase 16: python -m ceph_tpu_torch.tools.rados_cli exited "
+             f"{child.returncode}, loaded {bad}: {err[-1500:]}")
+    run("rados_cli", ["--state", tmp / "sub.st", "get", "sub",
+                      tmp / "sub.out"])
+    if (tmp / "sub.out").read_bytes() != payload:
+        fail("phase 16: the object the `python -m` rados put reads back "
+             "different")
+    log(f"  crushtool --oracle: {len(lines)} inputs the card's "
+        f"({len(oracle['procs'])} processes, {oracle_s:.1f} s from their "
+        f"start to this check); `python -m ceph_tpu_torch.tools.rados_cli "
+        f"put` loaded {len(loaded)} modules, none of JAX; its object "
+        f"read back exact")
+    return {"oracle_inputs": len(lines), "oracle_to_check_s": oracle_s,
+            "module_run_imports": len(loaded)}
+
+
+def crush_tools(run, tmp: Path) -> tuple:
+    """crushtool's own 10,000-OSD example on the card (100,000 inputs
+    of the EC rule at 11 replicas, two OSDs out), then the first
+    TOOLS_ORACLE_X inputs again (the oracle's sample, held in
+    check_background), then the same map through -o, -d and -c, which
+    must give the same bytes. Returns its numbers and the sample."""
+    text = run("crushtool", TOOLS_CRUSH + ["--max-x", TOOLS_CRUSH_X,
+                                           "--show-mappings", 5])
+    stats = dict(line.split(": ", 1) for line in text.splitlines()
+                 if not line.startswith("CRUSH rule"))
+    if int(stats["inputs"]) != TOOLS_CRUSH_X \
+            or float(stats["fill"]) < 0.999:
+        fail(f"phase 16: crushtool --test: {stats}")
+    sample = run("crushtool", TOOLS_CRUSH + [
+        "--max-x", TOOLS_ORACLE_X, "--show-mappings", TOOLS_ORACLE_X,
+        "--no-show-statistics"]).splitlines()
+    build = TOOLS_CRUSH[:3]
+    run("crushtool", build + ["-o", tmp / "crush.bin"])
+    run("crushtool", ["-d", tmp / "crush.bin", "-o", tmp / "crush.txt"])
+    run("crushtool", ["-c", tmp / "crush.txt", "-o", tmp / "crush2.bin"])
+    if (tmp / "crush.bin").read_bytes() != (tmp / "crush2.bin").read_bytes():
+        fail("phase 16: crushtool -c of -d's text is not the map")
+    log(f"  crushtool: {TOOLS_CRUSH_X} inputs at "
+        f"{stats['mappings_per_s']} mappings/s, fill {stats['fill']}; "
+        f"-o/-d/-c give the map's {(tmp / 'crush.bin').stat().st_size} "
+        f"bytes again")
+    return {"inputs": TOOLS_CRUSH_X, "fill": float(stats["fill"]),
+            "mappings_per_s": float(stats["mappings_per_s"]),
+            "map_bytes": (tmp / "crush.bin").stat().st_size}, sample
+
+
+def osdmap_tools(run, tmp: Path) -> dict:
+    """osdmaptool at 10,000 OSDs and a 65,536-PG pool of size 3:
+    --createsimple, --test-map-pgs, then --upmap --upmap-mode batch with
+    --save (a scorer launch a round); the saved map prints its upmaps.
+    The card's upmap file must be the plain (CPU) path's from one map,
+    made by --createsimple at TOOLS_OSDMAP_PLAIN."""
+    import re
+    import shutil
+
+    from ceph_tpu_torch.mgr import placement as P
+    big = tmp / "osdmap.bin"
+    run("osdmaptool", [big] + TOOLS_OSDMAP)
+    text = run("osdmaptool", [big, "--test-map-pgs"]).splitlines()
+    if text[-1] != " size 3: fill 1.0000" or \
+            len(text) != int(TOOLS_OSDMAP[1]) + 4:
+        fail(f"phase 16: osdmaptool --test-map-pgs: {text[:2]} {text[-2:]}")
+    n0 = P.launches
+    t0 = time.perf_counter()
+    out = run("osdmaptool", [big, "--upmap", tmp / "up.txt",
+                             "--upmap-mode", "batch", "--save"])
+    upmap_s = time.perf_counter() - t0
+    rounds = int(re.search(r"balancer: (\d+) round", out).group(1))
+    moves = int(re.search(r"(\d+) upmap move", out).group(1))
+    if not rounds or P.launches - n0 != rounds or not moves:
+        fail(f"phase 16: osdmaptool --upmap: {P.launches - n0} scorer "
+             f"launches, {out}")
+    up = (tmp / "up.txt").read_text().splitlines()
+    printed = [line for line in run("osdmaptool", [big, "--print"])
+               .splitlines() if line.startswith("pg_upmap_items")]
+    if len(printed) != len(up):
+        fail(f"phase 16: the saved map holds {len(printed)} upmap items, "
+             f"the upmap file {len(up)}")
+    small = tmp / "small.bin"
+    run("osdmaptool", [small] + TOOLS_OSDMAP_PLAIN)
+    shutil.copy(small, tmp / "small_cpu.bin")
+    run("osdmaptool", [small, "--upmap", tmp / "small.txt"])
+    n1 = P.launches
+    run("osdmaptool", [tmp / "small_cpu.bin", "--upmap",
+                       tmp / "small_cpu.txt", "--device", "cpu"])
+    if P.launches != n1:
+        fail("phase 16: osdmaptool --device cpu launched the scorer")
+    if (tmp / "small.txt").read_bytes() != \
+            (tmp / "small_cpu.txt").read_bytes():
+        fail("phase 16: the card's upmap file is not the plain path's")
+    log(f"  osdmaptool: {TOOLS_OSDMAP[1]} OSDs, {TOOLS_OSDMAP[3]} PGs; "
+        f"batch upmap {upmap_s:.2f} s, {rounds} round(s), {moves} moves "
+        f"({out.splitlines()[0]}); the plain path's upmap file at "
+        f"{TOOLS_OSDMAP_PLAIN[1]} OSDs is the card's "
+        f"({len((tmp / 'small.txt').read_text().splitlines())} PGs)")
+    return {"upmap_s": upmap_s, "rounds": rounds, "moves": moves,
+            "upmap_pgs": len(up)}
+
+
+def rados_tools(run, tmp: Path, rng) -> dict:
+    """rados put, ls, stat, get and rm of TOOLS_RADOS_OBJECTS x 4 MiB
+    over one state file (every call restores the cluster from it: a
+    fused write on the card); every get exact."""
+    import numpy as np
+    st = tmp / "rados.st"
+    objs = {f"obj-{i:02d}": rng.integers(0, 256, OBJECT_SIZE,
+                                         np.uint8).tobytes()
+            for i in range(TOOLS_RADOS_OBJECTS)}
+    for name, data in objs.items():
+        (tmp / f"{name}.in").write_bytes(data)
+        run("rados_cli", ["--state", st, "put", name, tmp / f"{name}.in"])
+    if run("rados_cli", ["--state", st, "ls"]).split() != sorted(objs):
+        fail("phase 16: rados ls does not list the objects put")
+    name = next(iter(objs))
+    if run("rados_cli", ["--state", st, "stat", name]) != \
+            f"{name} mtime n/a, size {OBJECT_SIZE}\n":
+        fail("phase 16: rados stat")
+    for name, data in objs.items():
+        run("rados_cli", ["--state", st, "get", name, tmp / f"{name}.out"])
+        if (tmp / f"{name}.out").read_bytes() != data:
+            fail(f"phase 16: rados get {name} differs from its put")
+    run("rados_cli", ["--state", st, "rm", *objs])
+    if run("rados_cli", ["--state", st, "ls"]) != "":
+        fail("phase 16: rados rm left objects")
+    log(f"  rados: {len(objs)} x {OBJECT_SIZE >> 20} MiB put, listed, "
+        f"read back exact, removed")
+    return {"objects": len(objs)}
+
+
+def rbd_tools(run, tmp: Path, rng) -> dict:
+    """rbd over one state file: a 256 MiB image, a 64 MiB disk imported,
+    a protected snapshot, a clone, its flattening, exports and diffs;
+    every export is the host model's bytes (the disk, or zeros)."""
+    import numpy as np
+    st = ["--state", tmp / "rbd.st"]
+    disk = rng.integers(0, 256, TOOLS_RBD_IMPORT, np.uint8).tobytes()
+    (tmp / "disk.raw").write_bytes(disk)
+    for argv in (["create", "big", "--size", TOOLS_RBD_IMAGE],
+                 ["import", tmp / "disk.raw", "vm"],
+                 ["snap", "create", "vm@gold"],
+                 ["snap", "protect", "vm@gold"],
+                 ["clone", "vm@gold", "kid"],
+                 ["export", "kid", tmp / "clone.raw"],
+                 ["flatten", "kid"],
+                 ["export", "kid", tmp / "kid.raw"],
+                 ["export", "big", tmp / "big.raw"]):
+        run("rbd_cli", st + argv)
+    for f in ("clone.raw", "kid.raw"):
+        if (tmp / f).read_bytes() != disk:
+            fail(f"phase 16: rbd export {f} is not the imported disk")
+    from ceph_tpu_torch.tools.rbd_cli import parse_size
+    big = (tmp / "big.raw").read_bytes()
+    if len(big) != parse_size(TOOLS_RBD_IMAGE) or big.count(0) != len(big):
+        fail("phase 16: rbd export of the fresh image is not zeros")
+    full = run("rbd_cli", st + ["diff", "kid"]).split()
+    since = run("rbd_cli", st + ["diff", "vm", "--from-snap", "gold"])
+    if sum(int(n) for n in full[1::2]) != len(disk) or since != "":
+        fail(f"phase 16: rbd diff: {full[:6]} / {since[:200]!r}")
+    children = run("rbd_cli", st + ["children", "vm@gold"])
+    if children != "":
+        fail(f"phase 16: the flattened clone is still a child: {children}")
+    log(f"  rbd: {TOOLS_RBD_IMAGE} image, {len(disk) >> 20} MiB imported, "
+        f"snap, protect, clone, flatten; exports and diffs the host "
+        f"model's")
+    return {"image": TOOLS_RBD_IMAGE, "imported_bytes": len(disk)}
+
+
+def store_tools(run, tmp: Path, dev) -> dict:
+    """ceph-objectstore-tool: demo (a degraded PG exported, its reads
+    rebuilt, imported into a k=8 m=3 cluster) and inspect of its file;
+    then kv-dump and fsck of every TinStore of phase 11's cluster shape
+    (48 OSDs, 64 PGs of RS k=8 m=3) after 16 x 4 MiB written."""
+    import re
+
+    import numpy as np
+
+    from ceph_tpu_torch.osd.cluster import SimCluster
+    text = run("objectstore_tool", ["demo", "--file", tmp / "pg.export"])
+    hit = re.search(r"verified (\d+)/(\d+) objects", text)
+    if not hit or hit.group(1) != hit.group(2):
+        fail(f"phase 16: objectstore_tool demo: {text}")
+    listed = run("objectstore_tool", ["inspect", tmp / "pg.export"])
+    if len(listed.splitlines()) != int(hit.group(2)) + 1:
+        fail(f"phase 16: objectstore_tool inspect: {listed[:300]}")
+    c = SimCluster(n_osds=CLUSTER_OSDS, osds_per_host=CLUSTER_PER_HOST,
+                   pg_num=CLUSTER_PGS, profile=PROFILE,
+                   chunk_size=OBJECT_SIZE // K, store="tin",
+                   store_dir=str(tmp / "osds"), **entry_device(dev))
+    rng = np.random.default_rng(SEED + 161)
+    c.write({f"s{i:02d}": rng.integers(0, 256, OBJECT_SIZE, np.uint8)
+             for i in range(TOOLS_STORE_OBJECTS)})
+    for st in c.cluster.stores.values():
+        st.umount()
+    shards = 0
+    dirs = sorted((tmp / "osds").iterdir())
+    for d in dirs:
+        rep = json.loads(run("objectstore_tool", ["fsck", d]))
+        shards += rep["objects"]
+    run("objectstore_tool", ["kv-dump", dirs[0]])
+    if shards != TOOLS_STORE_OBJECTS * (K + M):
+        fail(f"phase 16: fsck found {shards} shards in {len(dirs)} stores")
+    log(f"  objectstore_tool: demo {hit.group(0)}; fsck clean over "
+        f"{len(dirs)} TinStores holding {shards} shards")
+    return {"demo_objects": int(hit.group(2)), "fsck_stores": len(dirs),
+            "fsck_shards": shards}
+
+
+def cli_tools(run) -> dict:
+    """The ceph CLI's hermetic scenario at phase 7's cluster (48 OSDs,
+    64 PGs): status, df, pg stat, balancer and the cache tier."""
+    texts = {" ".join(cmd): run("ceph_cli", TOOLS_CLI + cmd)
+             for cmd in (["status"], ["df"], ["pg", "stat"], ["balancer"],
+                         ["tier"])}
+    if "HEALTH_OK" not in texts["status"] or \
+            f"osd: {CLUSTER_OSDS} osds" not in texts["status"] or \
+            len(texts["pg stat"].splitlines()) != CLUSTER_PGS or \
+            "bit-exact from base" not in texts["tier"]:
+        fail(f"phase 16: ceph: {json.dumps(texts)[:2000]}")
+    log(f"  ceph: status, df, pg stat, balancer "
+        f"({texts['balancer'].strip()}) and tier at {CLUSTER_OSDS} OSDs")
+    return {"balancer": texts["balancer"].strip()}
+
+
+def live_cli(asok_dir: str) -> dict:
+    """The ceph CLI's live mode against a running cluster's admin
+    sockets: each of TOOLS_LIVE must answer."""
+    run = ToolRun()
+    texts = {" ".join(cmd): run("ceph_cli", ["--asok-dir", asok_dir] + cmd)
+             for cmd in TOOLS_LIVE}
+    if not all(t.strip() for t in texts.values()) or \
+            " osds: " not in texts["status"]:
+        fail(f"phase 16: ceph --asok-dir: {json.dumps(texts)[:2000]}")
+    osd_line = next(line.strip() for line in texts["status"].splitlines()
+                    if " osds: " in line)
+    log(f"  ceph --asok-dir: {', '.join(texts)} answered "
+        f"({run.seconds['ceph_cli']:.2f} s); {osd_line}")
+    return {"answer_bytes": {cmd: len(t) for cmd, t in texts.items()},
+            "seconds": run.seconds["ceph_cli"]}
+
+
+def live_cluster(torch, dev) -> dict:
+    """For phase 16 alone: a StandaloneCluster of 8 OSDs on the card
+    (the CPU tests' size), a few objects written, every PG clean, then
+    live_cli over its admin sockets."""
+    from ceph_tpu_torch.osd.standalone import StandaloneCluster
+    torch.zeros(1, device=dev).sum().item()
+    c = StandaloneCluster(n_osds=8, pg_num=8, chunk_size=4096,
+                          hb_grace=SA_GRACE, **entry_device(dev))
+    try:
+        c.client().write({f"live-{i}": bytes([i]) * 40_000
+                          for i in range(16)})
+        c.wait_for_clean(120)
+        return live_cli(c.admin_dir)
+    finally:
+        c.shutdown()
+
+
+def thrash_tool(run) -> dict:
+    """The thrash reproducer at TOOLS_THRASH: invariants held and the
+    schedule, less "parked" lines, the twin's (TOOLS_THRASH_SHA)."""
+    import hashlib
+    text = run("thrash", TOOLS_THRASH)
+    tag = "thrash[42]: "
+    sched = [line[len(tag):] for line in text.splitlines()
+             if line.startswith(tag)]
+    keep = [line for line in sched if not line.startswith("parked")]
+    sha = hashlib.sha256("\n".join(keep).encode()).hexdigest()
+    report = json.loads(text.splitlines()[-1])
+    if not report["ok"] or sha != TOOLS_THRASH_SHA:
+        fail(f"phase 16: thrash schedule sha256 {sha}, not the twin's "
+             f"{TOOLS_THRASH_SHA}: {sched}; {report}")
+    log(f"  thrash: invariants held, schedule sha256 {sha[:8]}... the "
+        f"twin's ({len(keep)} lines, {len(sched) - len(keep)} parked)")
+    return {"schedule_sha256": sha, "parked": len(sched) - len(keep),
+            "objects_verified": report["objects_verified"]}
+
+
+def tools_phase(torch, dev, live: dict | None = None,
+                oracle: dict | None = None) -> tuple:
+    """Phase 16: the port's operator tools on the card, each through its
+    `main(argv)` with no --device (the card, as a user runs it), with
+    gf_apply's, the checksum kernels' and the scorer's counts set to 0
+    before and read after. `live` is live_cli's result over phase 15's
+    cluster and `oracle` start_oracle's children; without them (phase 16
+    alone) a cluster is booted and the oracle started here. Fails unless
+    gf_apply, CRC32C and the scorer launched."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from ceph_tpu_torch.mgr import placement as P
+    from ceph_tpu_torch.ops import gf_kernel as G
+    t0 = time.perf_counter()
+    gf_set(G)
+    csum_set()
+    P.launches = 0
+    run = ToolRun()
+    rng = np.random.default_rng(SEED + 16)
+    oracle = oracle or start_oracle()
+    tmp = Path(tempfile.mkdtemp(prefix="phase16-"))
+    child = None
+    try:
+        child, payload = start_module_run(tmp)
+        crush, sample = crush_tools(run, tmp)
+        out = {"crushtool": crush,
+               "osdmaptool": osdmap_tools(run, tmp),
+               "rados": rados_tools(run, tmp, rng),
+               "rbd": rbd_tools(run, tmp, rng),
+               "objectstore_tool": store_tools(run, tmp, dev),
+               "ceph": cli_tools(run),
+               "thrash": thrash_tool(run)}
+        out["background"] = check_background(run, oracle, child, payload,
+                                             sample, tmp)
+    finally:
+        stop_procs(oracle["procs"] + ([child] if child else []))
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches, shapes = gf_counts(G)
+    crc = crc_launches("phase 16")
+    score = P.launches
+    if launches == 0 or score == 0:
+        fail(f"phase 16: gf_apply launched {launches} times, the scorer "
+             f"{score}")
+    if live is None:
+        live = live_cluster(torch, dev)
+    out["ceph_live"] = live
+    seconds = {name: run.seconds[name] for name in sorted(run.seconds)}
+    seconds["ceph_cli --asok-dir"] = live["seconds"]
+    out.update({"tool_seconds": seconds, "tool_calls": dict(run.calls),
+                "gf_apply_launches": launches,
+                "gf_apply_by_shape": by_shape(shapes),
+                "crc32c_launches": crc, "score_launches": score,
+                "phase_s": time.perf_counter() - t0})
+    log(f"  phase 16 seconds by tool (host clock): {json.dumps(seconds)}; "
+        f"gf_apply {launches}, by (k,m,L,vec) {json.dumps(by_shape(shapes))}"
+        f"; CRC32C {crc}; scorer {score}")
+    log(f"  phase 16 wall time {out['phase_s']:.1f} s; {card_line()}")
+    return out, launches, shapes, crc, score
+
+
 def build_all() -> Path:
     """Phase 1: build every kernel source, one nvcc each, and the native
     host library (g++, always anew: a library copied in from another
@@ -4808,10 +5340,17 @@ def main() -> None:
         log(card_line())
         log(json.dumps({"osd_procs": procs}))
         return
+    if sys.argv[1:] == ["--tools"]:
+        build_all()
+        log("phase 16: the operator tools on the card")
+        tools = tools_phase(torch, dev)[0]
+        log(card_line())
+        log(json.dumps({"tools": tools}))
+        return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: none, --gf-times, "
              f"--crc-times, --score-times [PARENT_PLACEMENT_CU], "
-             f"--client, --mesh, --standalone or --osd-procs")
+             f"--client, --mesh, --standalone, --osd-procs or --tools")
     # each phase's seconds, phase 1's from here on
     seconds: dict = {}
     started = ["1", time.perf_counter()]
@@ -4895,6 +5434,9 @@ def main() -> None:
     log("bluestore " + json.dumps(bluestore))
 
     lap("10", "phase 10: the upmap balancer at 10k OSDs / 1M PGs")
+    # phase 16's crushtool --oracle, on host cores phase 10 leaves idle
+    oracle = start_oracle()
+    atexit.register(stop_procs, oracle["procs"])
     t0 = time.perf_counter()
     balancer = balancer_path(torch, dev)
     log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
@@ -4932,6 +5474,11 @@ def main() -> None:
         "workload engine, the cache tier and the runtime server")
     procs, launches15, shapes15, crc15 = procs_phase(torch, dev)
     log("osd_procs " + json.dumps(procs))
+
+    lap("16", "phase 16: the operator tools on the card")
+    tools, launches16, shapes16, crc16, score16 = tools_phase(
+        torch, dev, live=procs["live_cli"], oracle=oracle)
+    log("tools " + json.dumps(tools))
     seconds[started[0]] = time.perf_counter() - started[1]
     log(f"seconds by phase: {json.dumps(seconds)} (sum "
         f"{sum(seconds.values()):.1f} s)")
@@ -4942,12 +5489,13 @@ def main() -> None:
         "replaces": "ceph_tpu/ops/pallas_gf.py:103",
         "launches": launches + launches5 + launches7 + launches8
         + launches9 + launches11 + launches12 + launches13
-        + launches14 + launches15,
+        + launches14 + launches15 + launches16,
         "launches_by_phase": {"3": launches, "5": launches5,
                               "7": launches7, "8": launches8,
                               "9": launches9, "11": launches11,
                               "12": launches12, "13": launches13,
-                              "14": launches14, "15": launches15},
+                              "14": launches14, "15": launches15,
+                              "16": launches16},
         "launches_by_shape": {"3": by_shape(shapes3),
                               "5": backend["gf_apply_by_shape"],
                               "7": by_shape(shapes7),
@@ -4956,7 +5504,8 @@ def main() -> None:
                               "12": by_shape(shapes12),
                               "13": mesh["by_shape"],
                               "14": by_shape(shapes14),
-                              "15": by_shape(shapes15)},
+                              "15": by_shape(shapes15),
+                              "16": by_shape(shapes16)},
         "max_abs_err": gf_check["max_abs_err"],
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -4973,7 +5522,7 @@ def main() -> None:
     csum = times["csum"]
     crc_phases = {"3": crc3, "5": crc5, "7": crc7, "8": crc8,
                   "9": by9["crc32c"], "11": crc11, "12": crc12,
-                  "14": crc14, "15": crc15}
+                  "14": crc14, "15": crc15, "16": crc16}
     for name, replaces, main_row, by_phase, extra in (
             ("crc32c", "ceph_tpu/csum/kernels.py:113", "crc32c_256x512KiB",
              crc_phases, tuple(k for k in csum if k.startswith("crc32c")
@@ -5005,8 +5554,8 @@ def main() -> None:
         "name": "score_candidates", "route": "cuda",
         "source": "ceph_tpu_torch/mgr/csrc/placement.cu",
         "replaces": "ceph_tpu/mgr/placement.py:107",
-        "launches": balancer["launches"],
-        "launches_by_phase": {"10": balancer["launches"]},
+        "launches": balancer["launches"] + score16,
+        "launches_by_phase": {"10": balancer["launches"], "16": score16},
         "max_abs_err": score_check["max_abs_err"],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -474,3 +474,81 @@ def test_a_shard_that_missed_writes_while_suspected_catches_up():
         assert rep["checked"] == 2 * be.n
     finally:
         c.shutdown()
+
+
+def test_a_stalled_heartbeat_thread_reports_no_live_peer():
+    """An OSD whose own heartbeat thread blocks past the grace (here on
+    a PG lock, as behind a recovery batch) sent no pings meanwhile: it
+    reports none of its live peers failed when it resumes, since a peer
+    fails only on a ping it left unanswered for longer than the grace.
+    A peer that stops answering is still reported."""
+    c = TS.StandaloneCluster(n_osds=3, pg_num=1, hb_interval=0.1,
+                             hb_grace=0.5, device="cpu")
+    try:
+        c.wait_for_clean(timeout=60)
+        d = c.osds[0]
+        reported = []
+        note = d.repair_policy.note_suspect
+
+        def record(osd):
+            reported.append(osd)
+            note(osd)
+        d.repair_policy.note_suspect = record
+        with d._pg_lock(0):
+            time.sleep(1.5)       # the beat's reconcile waits here
+        time.sleep(0.6)
+        assert reported == [] and not d._reported
+        c.kill_osd(2)
+        t_end = time.monotonic() + 10
+        while 2 not in reported and time.monotonic() < t_end:
+            time.sleep(0.05)
+        assert reported == [2]
+    finally:
+        c.shutdown()
+
+
+def test_a_rebuild_short_of_helpers_by_suspicion_retries_with_them():
+    """A primary that suspects a live helper (a store op that timed out
+    under load) as it folds each map after a kill plans the rebuild
+    with too few helpers. It clears the suspicion of the peers its map
+    holds up, and a heartbeat's reconcile plans again with them: the PG
+    recovers once the maps go quiet, and every byte reads back."""
+    c = TS.StandaloneCluster(n_osds=5, pg_num=1, hb_interval=0.1,
+                             device="cpu")
+    try:
+        c.wait_for_clean(timeout=60)
+        cl = c.client()
+        cl.write({"a": b"a" * 3000, "b": b"b" * 1000})
+        prim = next(d for d in c.osds.values() if 0 in d.backends)
+        acting = list(prim.backends[0].acting)
+        helper, victim = acting[1], acting[2]
+        adopt, reconcile = prim._adopt_map_locked, prim._reconcile_pg
+        folding, injected = [], []
+
+        def fold(newmap):
+            folding.append(newmap.epoch)
+            try:
+                return adopt(newmap)
+            finally:
+                folding.pop()
+
+        def suspect_on_fold(ps, new_plans):
+            # each map fold after the victim's down mark suspects the
+            # helper just before the PG's rebuild is planned
+            if folding and not prim.osdmap.osd_up[victim]:
+                injected.append(prim.osdmap.epoch)
+                prim.suspect.add(helper)
+            return reconcile(ps, new_plans)
+        prim._adopt_map_locked = fold
+        prim._reconcile_pg = suspect_on_fold
+        for d in c.osds.values():
+            d.config.set("osd_heartbeat_grace", 1.0, level="override")
+        c.kill_osd(victim)
+        c.wait_for_down(victim, timeout=30)
+        c.wait_for_clean(timeout=30)
+        assert injected
+        assert victim not in prim.backends[0].acting
+        assert cl.read_many(["a", "b"]) == {"a": b"a" * 3000,
+                                            "b": b"b" * 1000}
+    finally:
+        c.shutdown()

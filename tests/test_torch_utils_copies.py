@@ -113,10 +113,20 @@ def test_crc_shift_and_rows_crc0_match_twin():
 
 
 def test_ec_counters_are_the_twins_less_streaming():
+    # the streaming counters are declared too: the schema is the twin's
     port = set(TB.ec_perf_counters().dump())
     twin = set(JB.ec_perf_counters().dump())
-    assert port == twin - {"stream_launches", "stream_bytes",
-                           "stream_drain_time"}
+    assert port == twin
+
+
+def test_ec_counter_schema_is_the_twins():
+    """`perf schema` (and so `ceph_cli perf`) answers the twin's keys in
+    the twin's order, each with the twin's kind and description."""
+    port = TB.ec_perf_counters().schema()
+    twin = JB.ec_perf_counters().schema()
+    assert list(port) == list(twin)
+    for key, row in twin.items():
+        assert port[key] == row, key
 
 
 def test_span_times_into_counters_and_shows_in_the_profiler():
