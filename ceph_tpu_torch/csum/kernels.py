@@ -68,6 +68,8 @@ import numpy as np
 import torch
 
 from ..utils import nvcc
+from ..utils.flight_recorder import declare_span_names
+from ..utils.tracing import span
 from .reference import (apply_shift, crc32c_slice8_tables, crc32c_table,
                         matrix_cols_u32, shift_matrix)
 
@@ -670,23 +672,32 @@ def crc32c_sets_plain(sets) -> torch.Tensor:
         else crc32c_extend_plain(s.regs, s.blocks) for s in _sets(sets)])
 
 
+CRC_SPAN = "csum.crc32c"
+declare_span_names(CRC_SPAN)
+
+
 def crc32c_sets(sets) -> torch.Tensor:
     """CRC-32C of 1 to MAX_SETS row sets (`CrcRows`: rows of their own
     B and L, each with crc32c_blocks' init/xorout or crc32c_extend's
     registers) as one (sum of B,) int64: set after set, each what
     crc32c_blocks (crc32c_extend) gives it. On CUDA tensors one kernel
-    launch; on CPU tensors the plain version; any other device raises."""
+    launch; on CPU tensors the plain version; any other device raises.
+    Spanned as `csum.crc32c`, tagged with its rows and bytes."""
     sets = _sets(sets)
     blocks = [_as_blocks(s.blocks) for s in sets]
-    if blocks[0].device.type == "cpu":
-        if any(b.device.type != "cpu" for b in blocks):
-            raise ValueError("crc32c_sets: the row sets lie on different "
-                             "devices")
-        return crc32c_sets_plain(sets)
-    return _crc32c_kernel([
-        (b, None, _seed_term(s.init, s.xorout, int(b.shape[1])))
-        if s.regs is None else (b, _as_regs(s.regs, b), 0)
-        for s, b in zip(sets, blocks)])
+    with span(CRC_SPAN, ring=False) as sp:
+        if sp.on:
+            sp.tag(rows=sum(int(b.shape[0]) for b in blocks),
+                   bytes=sum(b.numel() for b in blocks))
+        if blocks[0].device.type == "cpu":
+            if any(b.device.type != "cpu" for b in blocks):
+                raise ValueError("crc32c_sets: the row sets lie on "
+                                 "different devices")
+            return crc32c_sets_plain(sets)
+        return _crc32c_kernel([
+            (b, None, _seed_term(s.init, s.xorout, int(b.shape[1])))
+            if s.regs is None else (b, _as_regs(s.regs, b), 0)
+            for s, b in zip(sets, blocks)])
 
 
 # ---------------------------------------------------------------- xxhash

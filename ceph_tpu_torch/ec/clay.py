@@ -51,6 +51,8 @@ import torch
 from ..gf.numpy_ref import encode_ref, gf_mul
 from ..gf.tables import inv_table, mul_table
 from ..ops.rs_kernels import _IMPLS, DEFAULT_IMPL, make_encoder
+from ..utils.flight_recorder import declare_span_names
+from ..utils.tracing import span
 from .interface import CHUNK_ALIGNMENT, ErasureCode, host_array
 from .matrices import coding_matrix
 from .registry import register
@@ -113,6 +115,10 @@ def _solve_affine(M: np.ndarray, K: np.ndarray,
             "clay system underdetermined: outputs depend on unread data "
             "(invalid helper set, gamma, or base code)")
     return D
+
+
+ENCODE_SPAN = "ec.clay.encode_chunks"
+declare_span_names(ENCODE_SPAN)
 
 
 @register("clay")
@@ -530,15 +536,17 @@ class Clay(ErasureCode):
         return chunk.reshape(tuple(chunk.shape[:-1]) + (P, L // P))
 
     def encode_chunks(self, data) -> torch.Tensor:
-        data = self.as_chunks(data)
-        B, k, L = data.shape
-        assert k == self.k
-        parity_ids = tuple(range(self.k, self.k + self.m))
-        D, inputs = self._affine_decode(parity_ids, tuple(range(self.k)))
-        sub = self._split(data)  # (B, k, P, s)
-        stacked = sub.reshape(B, self.k * self.sub_chunk_count, -1)
-        out = self._apply(D, stacked)  # (B, m*P, s)
-        return out.reshape(B, self.m, L)
+        with span(ENCODE_SPAN, ring=False):
+            data = self.as_chunks(data)
+            B, k, L = data.shape
+            assert k == self.k
+            parity_ids = tuple(range(self.k, self.k + self.m))
+            D, inputs = self._affine_decode(parity_ids,
+                                            tuple(range(self.k)))
+            sub = self._split(data)  # (B, k, P, s)
+            stacked = sub.reshape(B, self.k * self.sub_chunk_count, -1)
+            out = self._apply(D, stacked)  # (B, m*P, s)
+            return out.reshape(B, self.m, L)
 
     def decode_chunks(self, want_to_read: Sequence[int],
                       chunks: Mapping[int, object]

@@ -35,6 +35,8 @@ import torch
 
 from ..gf.tables import bit_powers
 from ..utils import nvcc
+from ..utils.flight_recorder import declare_span_names
+from ..utils.tracing import span
 
 _REP = 0x01010101
 _SRC = Path(__file__).resolve().parent / "csrc" / "gf_apply.cu"
@@ -344,6 +346,10 @@ def apply_matrix_plain(matrix: np.ndarray, data: torch.Tensor
     return out.view(torch.uint8).reshape(B, m, L)
 
 
+GF_SPAN = "gf_apply"
+declare_span_names(GF_SPAN)
+
+
 def apply_matrix_gf(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     """out = matrix (GF) @ data along the shard axis; matrix static.
 
@@ -353,7 +359,18 @@ def apply_matrix_gf(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     other device raises."""
     matrix = np.ascontiguousarray(matrix, np.uint8)
     _check(matrix, data)
+    m, k = matrix.shape
+    B, _, L = data.shape
+    with span(GF_SPAN, ring=False, B=B, k=k, m=m, L=L) as sp:
+        return _apply_gf(matrix, data, sp)
+
+
+def _apply_gf(matrix: np.ndarray, data: torch.Tensor, sp) -> torch.Tensor:
+    """apply_matrix_gf's body, its non-zero coefficients tagged on its
+    span `sp` where a capture keeps it."""
     if data.device.type == "cpu":
+        if sp.on:
+            sp.tag(nnz=int(np.count_nonzero(matrix)))
         return apply_matrix_plain(matrix, data)
     if data.device.type != "cuda":
         raise ValueError(f"gf_apply runs on cuda or cpu tensors, "
@@ -369,8 +386,10 @@ def apply_matrix_gf(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     ptr = data.data_ptr()
     vec = 4 if L % 16 == 0 and ptr % 16 == 0 else \
         1 if L % 4 == 0 and ptr % 4 == 0 else 0
-    _sched, _flat, meta = _device_schedule(matrix.tobytes(), m, k,
-                                           data.device)
+    sched, _flat, meta = _device_schedule(matrix.tobytes(), m, k,
+                                          data.device)
+    if sp.on:
+        sp.tag(nnz=len(sched.words) // 8)   # 8 words a coefficient
     lib = _load()
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream

@@ -58,6 +58,7 @@ from ..ec.registry import factory
 from ..ec.rs import ReedSolomon
 from ..ops.rs_kernels import make_encoder, pow2_bucket, run_bucketed, \
     xor_reduce
+from ..utils.flight_recorder import declare_span_names
 from ..utils.perf_counters import PerfCountersBuilder
 from ..utils.tracing import span
 from .memstore import MemStore, Transaction
@@ -68,6 +69,23 @@ from .repairplan import plan_read, plan_repair
 from .stripe import HashInfo, StripeInfo, as_flat_u8
 
 _SEED = 0xFFFFFFFF
+
+# the span names of this module's sites: the ECBackend methods' (which
+# a sampled op's flight ring may carry; the observability smoke asserts
+# no ring carries an undeclared name) and the device programs' (kept
+# out of the ring: `ring=False`)
+declare_span_names(
+    "ecbackend.write.encode", "ecbackend.read.decode",
+    "ecbackend.recover.stage", "ecbackend.recover.launch",
+    "ecbackend.recover.fetch", "ecbackend.recover.writeback")
+FUSED_WRITE = "ecbackend.fused_write"
+FUSED_WRITE_HINFO = "ecbackend.fused_write.hinfo"
+RECOVER_PROGRAM = "ecbackend.recover_program"
+RECOVER_DECODE = "ecbackend.recover_program.decode"
+RECOVER_FOLD = "ecbackend.recover_program.fold"
+RECOVER_VERIFY = "ecbackend.recover_program.verify"
+declare_span_names(FUSED_WRITE, FUSED_WRITE_HINFO, RECOVER_PROGRAM,
+                   RECOVER_DECODE, RECOVER_FOLD, RECOVER_VERIFY)
 
 
 def _u32(t: torch.Tensor) -> np.ndarray:
@@ -234,15 +252,18 @@ def _fused_write_fn(matrix_bytes: bytes, m: int, k: int, impl: str,
             raise ValueError(
                 f"fused write wants ({bucket}, {k}, {sl}) uint8 on "
                 f"{device}, got {tuple(d.shape)} {d.dtype} on {d.device}")
-        parity = enc(d)
-        # the CRCs of [data; parity] rows in one launch, without
-        # concatenating the rows
-        crc = crc32c_sets([CrcRows(d.reshape(bucket * k, sl), _SEED, 0),
-                           CrcRows(parity.reshape(bucket * m, sl), _SEED,
-                                   0)])
-        return parity, torch.cat([crc[:bucket * k].reshape(bucket, k),
-                                  crc[bucket * k:].reshape(bucket, m)],
-                                 dim=1)
+        with span(FUSED_WRITE, ring=False, bytes=bucket * k * sl):
+            parity = enc(d)
+            # the CRCs of [data; parity] rows in one launch, without
+            # concatenating the rows
+            crc = crc32c_sets([CrcRows(d.reshape(bucket * k, sl), _SEED,
+                                       0),
+                               CrcRows(parity.reshape(bucket * m, sl),
+                                       _SEED, 0)])
+            with span(FUSED_WRITE_HINFO, ring=False):
+                return parity, torch.cat(
+                    [crc[:bucket * k].reshape(bucket, k),
+                     crc[bucket * k:].reshape(bucket, m)], dim=1)
     return fused
 
 
@@ -300,34 +321,46 @@ def _build_recover_program(dec_fn, verify: bool, host_crc: bool):
     rebuilt CRCs, fold-ok), all on the stack's device; expfold (B,) is
     what `_expected_fold_crcs` gives, best passed as an int64 tensor
     already on that device (a host array is uploaded here)."""
+    def fold(stack: torch.Tensor) -> torch.Tensor:
+        B, H, rl = stack.shape
+        with span(RECOVER_FOLD, ring=False, bytes_in=B * H * rl,
+                  bytes_out=B * rl):
+            return xor_reduce(stack, dim=1)
+
     if host_crc:
         def fused_host(stack: torch.Tensor):     # (B, H, sl) u8
-            rebuilt = dec_fn(stack)              # (B, E, sl)
-            if verify:
-                return rebuilt, xor_reduce(stack, dim=1)
-            return (rebuilt,)
+            B, H, sl = stack.shape
+            with span(RECOVER_PROGRAM, ring=False, B=B, H=H, rl=sl):
+                with span(RECOVER_DECODE, ring=False):
+                    rebuilt = dec_fn(stack)      # (B, E, sl)
+                if verify:
+                    return rebuilt, fold(stack)
+                return (rebuilt,)
         return fused_host
 
     def fused(stack: torch.Tensor, expfold):     # (B, H, rl) u8, (B,)
-        B = stack.shape[0]
-        rebuilt = dec_fn(stack)        # (B, E, sl) — sl may exceed the
-        E = rebuilt.shape[1]           # staged rl (range plans ship
-        out_len = rebuilt.shape[2]     # sub-chunks, rebuild whole rows)
-        rows = CrcRows(rebuilt.reshape(B * E, out_len), _SEED, 0)
-        if verify:
-            # the rebuilt rows' CRCs and the helper fold's (rl bytes) in
-            # one launch
-            fold = xor_reduce(stack, dim=1)
-            crc = crc32c_sets([rows, CrcRows(fold, _SEED, 0)])
-            rcrc, fcrc = crc[:B * E].reshape(B, E), crc[B * E:]
-            if not isinstance(expfold, torch.Tensor):
-                expfold = torch.from_numpy(
-                    np.asarray(expfold).astype(np.int64))
-            ok = fcrc == expfold.to(device=stack.device, dtype=torch.int64)
-        else:
-            rcrc = crc32c_sets([rows]).reshape(B, E)
-            ok = torch.ones((B,), dtype=torch.bool, device=stack.device)
-        return rebuilt, rcrc, ok
+        B, H, rl = stack.shape
+        with span(RECOVER_PROGRAM, ring=False, B=B, H=H, rl=rl):
+            with span(RECOVER_DECODE, ring=False):
+                rebuilt = dec_fn(stack)  # (B, E, sl) — sl may exceed the
+            E = rebuilt.shape[1]         # staged rl (range plans ship
+            out_len = rebuilt.shape[2]   # sub-chunks, rebuild whole rows)
+            rows = CrcRows(rebuilt.reshape(B * E, out_len), _SEED, 0)
+            if verify:
+                # the rebuilt rows' CRCs and the helper fold's (rl
+                # bytes) in one launch
+                crc = crc32c_sets([rows, CrcRows(fold(stack), _SEED, 0)])
+                rcrc, fcrc = crc[:B * E].reshape(B, E), crc[B * E:]
+                with span(RECOVER_VERIFY, ring=False):
+                    if not isinstance(expfold, torch.Tensor):
+                        expfold = torch.from_numpy(
+                            np.asarray(expfold).astype(np.int64))
+                    ok = fcrc == expfold.to(device=stack.device,
+                                            dtype=torch.int64)
+            else:
+                rcrc = crc32c_sets([rows]).reshape(B, E)
+                ok = torch.ones((B,), dtype=torch.bool, device=stack.device)
+            return rebuilt, rcrc, ok
     return fused
 
 

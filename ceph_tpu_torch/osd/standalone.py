@@ -101,7 +101,7 @@ _META_DELTA_MAX = 32
 
 # every span name this module's hops may record into a flight ring
 # (the r9 no-undeclared-names invariant, extended to the trace plane;
-# ecbackend's span() sites declare themselves through the same call —
+# osd/ecbackend.py declares its own span() sites' names beside them —
 # the observability smoke asserts no ring carries an undeclared name)
 declare_span_names(
     "client.op", "client.hedge",
@@ -109,10 +109,6 @@ declare_span_names(
     "osd.recovery_round",
     "osd.repair_policy", "osd.repair_throttle",
     "msgr.seal",
-    "ecbackend.write.encode", "ecbackend.read.decode",
-    "ecbackend.recover.stage", "ecbackend.recover.launch",
-    "ecbackend.recover.fetch", "ecbackend.recover.writeback",
-    "ecbackend.recover.batch",
 )
 
 
