@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..gf.tables import GF_EXP, GF_LOG, bit_powers, matrix_to_bitmatrix
+from .fold_kernel import xor_fold, xor_fold_plain
 from .gf_kernel import apply_matrix_gf
 
 
@@ -47,16 +48,13 @@ def _check(data: torch.Tensor, k: int) -> None:
 
 
 def xor_reduce(t: torch.Tensor, dim: int) -> torch.Tensor:
-    """XOR of `t` along `dim` (torch has no XOR-reduce op)."""
-    parts = t.unbind(dim)
-    if not parts:
-        shape = list(t.shape)
-        del shape[dim]
-        return torch.zeros(shape, dtype=t.dtype, device=t.device)
-    acc = parts[0].clone()
-    for p in parts[1:]:
-        acc ^= p
-    return acc
+    """XOR of `t` along `dim` (torch has no XOR-reduce op): the hand
+    fold kernel on a CUDA tensor (ops/fold_kernel.py::xor_fold, which
+    raises on what it does not take), the plain torch loop on any
+    other."""
+    if t.device.type == "cuda":
+        return xor_fold(t, dim)
+    return xor_fold_plain(t, dim)
 
 
 # ---------------------------------------------------------------- bitlinear

@@ -277,6 +277,17 @@ and the lane-private tables' lookups alone, the lane-private lookups
 on the kernel's loads) with each part's instructions a byte from
 `cuobjdump -sass`.
 
+    python3 chip_smoke.py --fold-times
+
+builds xor_fold.cu and prints phase 4's XOR fold rows (FOLD_ROWS: the
+recovery program's helper stacks of the RS k=8 m=3 and the Clay k=8 m=4
+d=11 recovery cells, 128 objects each; FOLD_RAGGED: 4,093-byte rows on
+the kernel's byte-place instance): device ms a launch, ms and host us a
+call, the bytes bound and the share, and the plain torch loop's ms.
+Phase 4 times the same rows in the full run, and fails unless one call
+of the recovery program launches the fold kernel exactly once; phase 3
+fails unless the main path launches it once a recovery call.
+
     python3 chip_smoke.py --score-times [PARENT_PLACEMENT_CU]
 
 prints the placement scorer's rows (SCORE_ROWS at N = 262,144, 2S = 6,
@@ -1402,6 +1413,78 @@ def csum_table(torch, dev, plain: bool = True, only_crc: bool = False
     return out
 
 
+# the recovery program's folds: (B, H, rl) helper stacks of the
+# benchmark's recovery cells, RS k=8 m=3's 8 full rows and Clay k=8 m=4
+# d=11's 11 helpers' 16 shipped planes of 8 KiB, 128 objects an op
+FOLD_ROWS = (("fold_rs_128x8x512KiB", (128, 8, 524288)),
+             ("fold_clay_128x11x128KiB", (128, 11, 131072)))
+# a ragged row: 4,093-byte rows (the RMW delta's window), which run the
+# kernel's byte-place instance; 2,048 of them, so the stack (67 MB)
+# does not stay in L2 from one call to the next
+FOLD_RAGGED = ("fold_ragged_2048x8x4093", (2048, 8, 4093))
+
+
+def fold_table(torch, dev, plain: bool = True) -> dict:
+    """The XOR fold kernel at FOLD_ROWS and FOLD_RAGGED: held byte for
+    byte against the plain torch loop (the largest absolute difference
+    of a byte in "max_abs_err", which has to be 0), then ms per call
+    (CUDA events around 20 calls), its device ms per launch (a trace),
+    host us per call, the bound (B * (H + 1) * rl bytes through HBM)
+    and the device time's share of it, and with `plain` the plain
+    loop's ms (the fold's path before the kernel). Each input is over
+    50 MB, so a call finds no more of its input in L2 than the end of
+    the call before it, which it reaches last."""
+    from ceph_tpu_torch.ops import fold_kernel as F
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+    out = {"max_abs_err": 0}
+    for label, (B, H, L) in FOLD_ROWS + (FOLD_RAGGED,):
+        x = torch.randint(0, 256, (B, H, L), dtype=torch.uint8, device=dev,
+                          generator=gen)
+        n0 = F.xor_fold.launches
+        got = F.xor_fold(x, 1)
+        torch.cuda.synchronize()
+        if F.xor_fold.launches - n0 != 1:
+            fail(f"{label}: one xor_fold call made "
+                 f"{F.xor_fold.launches - n0} launches")
+        err = int((got.to(torch.int16) - F.xor_fold_plain(x, 1)
+                   .to(torch.int16)).abs().max())
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if err:
+            fail(f"{label}: xor_fold disagrees with its plain version "
+                 f"(max_abs_err={err})")
+        del got
+
+        def fn():
+            return F.xor_fold(x, 1)
+        ms = cuda_ms(fn, calls=20)
+        dev_ms, dev_from = kernel_device_ms(fn, "xor_fold_kernel")
+        us = host_us(fn)
+        plain_ms = cuda_ms(lambda: F.xor_fold_plain(x, 1), 1, 3) \
+            if plain else None
+        bound = B * (H + 1) * L / HBM_BYTES_PER_S * 1e3
+        out[label] = {"ms": ms, "device_ms": dev_ms,
+                      "device_ms_from": dev_from, "host_us": us,
+                      "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": "bytes", "shape": [B, H, L],
+                      "place_bytes": F.place_bytes(
+                          x.data_ptr(), x.stride(0), x.stride(1), L,
+                          0),
+                      "device_share_of_bound": bound / dev_ms,
+                      "device_gbps": B * (H + 1) * L / dev_ms / 1e6}
+        log(f"  xor_fold ({B},{H},{L})->({B},{L}), "
+            f"{out[label]['place_bytes']}-byte places: equal to plain; "
+            f"{ms:.5f} ms per call, {dev_ms:.5f} ms on the device "
+            f"({bound / dev_ms:.1%} of the bound {bound:.5f} ms, "
+            f"{B * (H + 1) * L / dev_ms / 1e6:.0f} GB/s), {us:.1f} us of "
+            f"host time per call; plain loop "
+            f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}")
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
 def sass_loops(lib) -> dict:
     """The loops of each kernel in a built library, from `cuobjdump
     -sass` beside the nvcc that built it: for every backward branch that
@@ -1550,6 +1633,7 @@ def measure(torch, dev, ctx) -> dict:
     coder, sl = ctx["coder"], ctx["sl"]
     out, mats = gf_table(torch, dev)
     out["csum"] = csum_table(torch, dev)
+    out["fold"] = fold_table(torch, dev)
     for label, mat in mats.items():
         sched = G.compile_schedule(mat)
         out[label]["entries"] = len(sched.ent)
@@ -1585,6 +1669,13 @@ def measure(torch, dev, ctx) -> dict:
                  f"{csum_counts()['crc32c'] - n0} times, not once")
     log("  the fused write, the fused delta and the recovery program "
         "each launch the CRC32C kernel once a call")
+    from ceph_tpu_torch.ops import fold_kernel as F
+    n0 = F.xor_fold.launches
+    ctx["recover"](data, expfold)
+    if F.xor_fold.launches - n0 != 1:
+        fail(f"one call of the recovery program launched the XOR fold "
+             f"kernel {F.xor_fold.launches - n0} times, not once")
+    log("  the recovery program launches the XOR fold kernel once a call")
     rows = data.reshape(BATCH * K, sl)
     t_crc = cuda_ms(lambda: crc32c_blocks(rows, init=0xFFFFFFFF, xorout=0))
     e2e = {"encode_gbps": in_bytes / t_enc / 1e6,
@@ -5226,15 +5317,17 @@ def build_all() -> Path:
     from ceph_tpu_torch import native
     from ceph_tpu_torch.csum import kernels as C
     from ceph_tpu_torch.mgr import placement as P
+    from ceph_tpu_torch.ops import fold_kernel as F
     from ceph_tpu_torch.ops import gf_kernel as G
 
     def timed(build):
         t0 = time.perf_counter()
         path = Path(build())
         return path, time.perf_counter() - t0
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         jobs = {"gf_apply.cu": pool.submit(timed, G.build),
                 "csum.cu": pool.submit(timed, C.build),
+                "xor_fold.cu": pool.submit(timed, F.build),
                 "placement.cu": pool.submit(timed, P.build),
                 "native/ec_tpu.cpp": pool.submit(
                     timed, lambda: native.build(force=True))}
@@ -5281,6 +5374,15 @@ def main() -> None:
         rows, _ = gf_table(torch, dev, plain=False)
         log(card_line())
         log(json.dumps({"gf_times": rows}))
+        return
+    if sys.argv[1:] == ["--fold-times"]:
+        from ceph_tpu_torch.ops import fold_kernel as F
+        t0 = time.perf_counter()
+        F.build()
+        log(f"phase 1: built xor_fold.cu in {time.perf_counter() - t0:.1f} s")
+        rows = fold_table(torch, dev)
+        log(card_line())
+        log(json.dumps({"fold_times": rows}))
         return
     if sys.argv[1:2] == ["--score-times"] and len(sys.argv) <= 3:
         parent = Path(sys.argv[2]).resolve() if len(sys.argv) == 3 else None
@@ -5349,17 +5451,25 @@ def main() -> None:
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: none, --gf-times, "
-             f"--crc-times, --score-times [PARENT_PLACEMENT_CU], "
+             f"--crc-times, --fold-times, --score-times "
+             f"[PARENT_PLACEMENT_CU], "
              f"--client, --mesh, --standalone, --osd-procs or --tools")
     # each phase's seconds, phase 1's from here on
     seconds: dict = {}
     started = ["1", time.perf_counter()]
+    # each phase's XOR fold launches in this process
+    from ceph_tpu_torch.ops import fold_kernel as F
+    folds: dict = {}
+
+    def close_phase() -> None:
+        seconds[started[0]] = time.perf_counter() - started[1]
+        folds[started[0]] = F.xor_fold.launches
+        F.xor_fold.launches = 0
 
     def lap(name: str, msg: str) -> None:
         """Close the running phase's seconds and open phase `name`."""
-        now = time.perf_counter()
-        seconds[started[0]] = now - started[1]
-        started[:] = [name, now]
+        close_phase()
+        started[:] = [name, time.perf_counter()]
         log(msg)
 
     native_lib = build_all()
@@ -5379,6 +5489,12 @@ def main() -> None:
     if launches == 0:
         fail("the main path never launched gf_apply")
     crc3 = crc_launches("phase 3")
+    fold3 = F.xor_fold.launches
+    log(f"  xor_fold launches on the main path: {fold3} in "
+        f"{N_OBJECTS // BATCH} calls of the recovery program")
+    if fold3 != N_OBJECTS // BATCH:
+        fail(f"the main path launched the XOR fold kernel {fold3} times "
+             f"in {N_OBJECTS // BATCH} calls of the recovery program")
 
     lap("4", "phase 4: times")
     times = measure(torch, dev, ctx)
@@ -5479,7 +5595,7 @@ def main() -> None:
     tools, launches16, shapes16, crc16, score16 = tools_phase(
         torch, dev, live=procs["live_cli"], oracle=oracle)
     log("tools " + json.dumps(tools))
-    seconds[started[0]] = time.perf_counter() - started[1]
+    close_phase()
     log(f"seconds by phase: {json.dumps(seconds)} (sum "
         f"{sum(seconds.values()):.1f} s)")
     kernels = [{
@@ -5563,6 +5679,29 @@ def main() -> None:
         "device_ms": row["device_ms"],
         "device_ms_from": row["device_ms_from"],
         "mean_visits": row["mean_visits"]})
+    # phase 4's launches are its own timing calls, not a served path's;
+    # phases 12-16 fold in their own processes, which this one does not
+    # count
+    fold_by_phase = {name: n for name, n in folds.items()
+                     if n and name != "4"}
+    log(f"  xor_fold launches by phase (4 left out): "
+        f"{json.dumps(fold_by_phase)}")
+    row = times["fold"][FOLD_ROWS[0][0]]
+    kernels.append({
+        "name": "xor_fold", "route": "cuda",
+        "source": "ceph_tpu_torch/ops/csrc/xor_fold.cu",
+        "replaces": "ceph_tpu/osd/ecbackend.py:2045",
+        "launches": sum(fold_by_phase.values()),
+        "launches_by_phase": fold_by_phase,
+        "max_abs_err": times["fold"]["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None, "shape": row["shape"],
+        "device_ms": row["device_ms"],
+        "device_ms_from": row["device_ms_from"],
+        "host_us": row["host_us"],
+        **{label: times["fold"][label]
+           for label, _ in FOLD_ROWS[1:] + (FOLD_RAGGED,)}})
     log("e2e " + json.dumps(times["e2e"]))
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -29,7 +29,8 @@ def _port_modules():
 def test_port_has_the_slice_modules():
     mods = set(_port_modules())
     for name in ("gf.tables", "gf.numpy_ref", "ec.matrices", "csum.reference",
-                 "ops.gf_kernel", "ops.rs_kernels", "csum.kernels",
+                 "ops.gf_kernel", "ops.fold_kernel", "ops.rs_kernels",
+                 "csum.kernels",
                  "ec.interface", "ec.linearize", "ec.registry", "ec.rs",
                  "ops.xor_kernels", "ec.bitmatrix", "osd.ecbackend",
                  "utils.perf_counters", "utils.profiler",
